@@ -15,13 +15,29 @@ Phases, each announced on its own line:
     device-resident bf16 bank: three batches (B=1/Tw=32, B=4/Tw=48,
     B=16/Tw=64) word ids -> wav, K1 launched once per batch; one request
     also served on the CPU through the plain versions as a reference;
- 5. one batch of gathered-bank serving with use_pallas_s2pa, through K3.
+ 5. one batch of gathered-bank serving with use_pallas_s2pa, through K3;
+ 6. K2 (s2pa_bank_bwd) against its plain version at the training geometry
+    (bank 8000 x 96 x 768, N = 60 x 64 = 3840 slots, one all-masked slot,
+    a dropout mask), f32 and bf16; the autograd function (K1 + K2) against
+    autograd through K1's plain version; K2 and f32 K1 timed;
+ 7. training at production width (the recipe's DictTTSTask, seeded random
+    weights, the f32 device bank, dropout on): synthetic batches of B=60,
+    Tw=64, 512 frames; 2 warm-up and 20 timed steps; K1 and K2 launched
+    once per step, K3 never; then 3 steps under torch.profiler (top
+    kernels, convolutions by shape, the device's idle share) and 5 with
+    cuDNN autotuning, for comparison;
+ 7b. Trainer.fit for 2 steps into a temporary directory, then a resume
+    from its checkpoint and a third step;
+ 7c. one train step at full width on the card and on the CPU (plain
+    versions) from the same weights, dropout 0, pinned noise and crops, at
+    B=2, Tw=16, 128 frames: every loss and both gradient norms compared.
 
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...]}) and the total seconds; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
 does a machine without CUDA. Nothing is written outside the gitignored
-build directory dicttts_tpu_torch/_build/.
+build directory dicttts_tpu_torch/_build/ and a temporary directory that
+phase 7b removes.
 """
 
 from __future__ import annotations
@@ -33,6 +49,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 T_START = time.time()
@@ -46,6 +63,8 @@ PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32
 BANK_V, BANK_L, BANK_E, BANK_P = 8000, 96, 768, 8
 SAMPLE_RATE, HOP = 22050, 256
 BATCHES = ((1, 32), (4, 48), (16, 64))  # (requests, word slots per request)
+TRAIN_B, TRAIN_TW, TRAIN_T = 60, 64, 512  # recipe max_sentences 60, the 512-frame bucket
+TRAIN_WARMUP, TRAIN_STEPS = 2, 20
 
 
 def say(msg: str) -> None:
@@ -72,13 +91,14 @@ def bound(n_bytes: float, n_ops: float, dtype: str) -> tuple[float, str]:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def make_bank(device, gen):
-    """Seeded [V, L, E] bf16 bank and its maps, made on the device. Sense
+def make_bank(device, gen, dtype=torch.bfloat16):
+    """Seeded [V, L, E] bank (bf16 for serving, f32 for training) and its
+    maps, made on the device. Sense
     ids are contiguous runs over each word's gloss tokens; each sense owns
     two pinyin slots. Rows 0/1/2 (pad, BOS, EOS) follow the collater
     convention: zero keys, maps 1."""
     V, L, E, P = BANK_V, BANK_L, BANK_E, BANK_P
-    keys = torch.randn((V, L, E), generator=gen, device=device, dtype=torch.bfloat16)
+    keys = torch.randn((V, L, E), generator=gen, device=device, dtype=dtype)
     n_senses = torch.randint(1, 4, (V, 1), generator=gen, device=device)
     glen = torch.randint(8, L + 1, (V, 1), generator=gen, device=device)
     ll = torch.arange(L, device=device)[None]
@@ -92,6 +112,19 @@ def make_bank(device, gen):
     pinyin[:3] = 0
     pinyin_map[:3] = 1
     return {"keys": keys, "key_map": key_map, "pinyin": pinyin, "pinyin_map": pinyin_map}
+
+
+def bank_fwd_bound(args):
+    """K1's least time for these inputs: (ms, 'bytes' or 'operations',
+    bytes moved, distinct bank rows read)."""
+    bank, wt, qe, km, mask = args
+    _, L, E = bank.shape
+    N, elt = wt.shape[0], bank.element_size()
+    n_rows = torch.unique(wt).numel()  # bank rows this run's ids read
+    n_bytes = (n_rows * L * E * elt + N * 4 + N * E * elt + 2 * N * L * 4  # in: rows, wt, qe, km, mask
+               + N * E * elt + N * L * 4)  # out: ctx, w
+    bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * E, "bfloat16" if bank.dtype == torch.bfloat16 else "float32")
+    return bound_ms, bound_by, n_bytes, n_rows
 
 
 def check_bank_kernel(device, gen, dtype):
@@ -123,11 +156,7 @@ def check_bank_kernel(device, gen, dtype):
         raise AssertionError("K1 produced non-finite values")
     ms = time_ms(lambda: s2pa_bank_fwd(*args))
     plain_ms = time_ms(lambda: s2pa_bank_fwd_plain(*args))
-    elt = bank.element_size()
-    n_rows = torch.unique(wt).numel()  # bank rows this run's ids read
-    n_bytes = (n_rows * L * E * elt + N * 4 + N * E * elt + 2 * N * L * 4  # in: rows, wt, qe, km, mask
-               + N * E * elt + N * L * 4)  # out: ctx, w
-    bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * E, "bfloat16" if dtype == torch.bfloat16 else "float32")
+    bound_ms, bound_by, n_bytes, n_rows = bank_fwd_bound(args)
     say(f"K1 {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_rows} distinct rows)")
     return {"name": "s2pa_bank_fwd", "route": "cuda", "source": "dicttts_tpu_torch/csrc/s2pa_bank_fwd.cu",
@@ -169,6 +198,307 @@ def check_fused_kernel(device, gen):
             "library_ms": None}
 
 
+def bank_bwd_args(device, gen, dtype, N):
+    """Training-geometry K1/K2 inputs: uniform word ids, one all-masked
+    slot, a dropout keep-scale mask (p = 0.1), random upstream gradients."""
+    V, L, E = BANK_V, BANK_L, BANK_E
+    bank = torch.randn((V, L, E), generator=gen, device=device).to(dtype)
+    wt = torch.randint(0, V, (N,), generator=gen, device=device, dtype=torch.int32)
+    qe = (torch.randn((N, E), generator=gen, device=device) * (3.0 / math.sqrt(E))).to(dtype)
+    km = torch.randint(0, 4, (N, L), generator=gen, device=device, dtype=torch.int32)
+    km[:, 0] = 1
+    km[7] = 0  # an all-masked slot: uniform weights, zero gradient
+    mask = (torch.rand((N, L), generator=gen, device=device) >= 0.1).float() / 0.9
+    g_ctx = torch.randn((N, E), generator=gen, device=device).to(dtype)
+    g_w = torch.randn((N, L), generator=gen, device=device)
+    return (bank, wt, qe, km, mask), g_ctx, g_w
+
+
+def check_bank_bwd_kernel(device, gen, dtype, N):
+    """K2 against its plain version, then timed beside its byte bound."""
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_bwd_plain
+
+    args, g_ctx, g_w = bank_bwd_args(device, gen, dtype, N)
+    L, E = BANK_L, BANK_E
+    d_qe = s2pa_bank_bwd(*args, g_ctx, g_w)
+    torch.cuda.synchronize()
+    ref = s2pa_bank_bwd_plain(*args, g_ctx, g_w).float()
+    err = (d_qe.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    # f32: summation order only; bf16: d_logits and d_qe are rounded to bf16,
+    # so a last-bit difference in an f32 sum can flip a rounding (two ulps)
+    tol = 2e-5 * scale if dtype == torch.float32 else 2 ** -7 * scale
+    masked_row = d_qe[7].float().abs().max().item()
+    say(f"K2 s2pa_bank_bwd {dtype}: max|d d_qe|={err:.3e} (tol {tol:.3e}, max|d_qe| {scale:.3e}); "
+        f"all-masked slot max|d_qe| {masked_row:.1e} (must be 0)")
+    if not (err <= tol and masked_row == 0.0 and torch.isfinite(d_qe.float()).all()):
+        raise AssertionError(f"K2 {dtype} disagrees with its plain version")
+    ms = time_ms(lambda: s2pa_bank_bwd(*args, g_ctx, g_w))
+    plain_ms = time_ms(lambda: s2pa_bank_bwd_plain(*args, g_ctx, g_w), iters=5)
+    elt = args[0].element_size()
+    n_rows = torch.unique(args[1]).numel()
+    n_bytes = (n_rows * L * E * elt + N * 4 + 2 * N * E * elt + 3 * N * L * 4  # in: rows, wt, qe, g_ctx, km, mask, g_w
+               + N * E * elt)  # out: d_qe
+    bound_ms, bound_by = bound(n_bytes, 6.0 * N * L * E, "bfloat16" if dtype == torch.bfloat16 else "float32")
+    say(f"K2 {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_rows} distinct rows of {N} slots)")
+    return args, {"name": "s2pa_bank_bwd", "route": "cuda",
+                  "source": "dicttts_tpu_torch/csrc/s2pa_bank_bwd.cu",
+                  "replaces": "dicttts_tpu/ops/s2pa_bank_pallas.py:163", "max_abs_err": err,
+                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                  "library_ms": None}
+
+
+def check_bank_autograd(args):
+    """K1 + K2 through the autograd function against autograd through K1's
+    plain version: loss = sum(ctx^2) + sum(sin(w))."""
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_attend, s2pa_bank_fwd_plain
+
+    bank, wt, qe, km, mask = args
+    grads = []
+    for fwd in (s2pa_bank_attend, s2pa_bank_fwd_plain):
+        q = qe.detach().clone().requires_grad_(True)
+        ctx, w = fwd(bank, wt, q, km, mask)
+        ((ctx.float() ** 2).sum() + torch.sin(w).sum()).backward()
+        grads.append(q.grad.float())
+    torch.cuda.synchronize()
+    err = (grads[0] - grads[1]).abs().max().item()
+    tol = 2e-4 * grads[1].abs().max().item()
+    say(f"autograd K1+K2 vs autograd through the plain forward: max|d grad|={err:.3e} "
+        f"(tol {tol:.3e}: 2e-4 of the largest, the JAX package's rtol for this backward)")
+    if not err <= tol:
+        raise AssertionError("the K1+K2 autograd function disagrees with the plain gradient")
+
+
+def make_train_batches(rng, n, B, Tw, T, V):
+    """Collater-format batches: BOS, words of 4-12 frames, EOS, until Tw
+    words or T frames; log-mel-like values, zero past mel_lengths."""
+    out = []
+    for _ in range(n):
+        wt = np.zeros((B, Tw), np.int32)
+        m2w = np.zeros((B, T), np.int32)
+        wl = np.zeros(B, np.int32)
+        for b in range(B):
+            f = w = 0
+            while w < Tw and f < T:
+                d = min(rng.randint(4, 13), T - f)
+                m2w[b, f:f + d] = w + 1
+                f, w = f + d, w + 1
+            wt[b, :w] = np.concatenate([[1], rng.randint(3, V, w - 1)])
+            wt[b, w - 1] = 2
+            wl[b] = w
+        lengths = (m2w > 0).sum(1).astype(np.int32)
+        mels = (rng.randn(B, T, 80) * 1.5 - 4.0).astype(np.float32) * (m2w > 0)[:, :, None]
+        pron = np.where(rng.rand(B, Tw) < 0.1, rng.randint(1, 3, (B, Tw)), 0).astype(np.int32) * (wt > 2)
+        out.append({"word_tokens": wt, "pron_modified": pron, "mel2word": m2w, "mels": mels,
+                    "word_lengths": wl, "mel_lengths": lengths})
+    return out
+
+
+def param_snapshot(task):
+    return [p.detach().clone() for p in (*task.model.parameters(), *task.disc.parameters())]
+
+
+def train_full_width(device, bank, gen_seed, k1_ms, k2_ms, smi):
+    """Phase 7: the recipe's train step at production width; returns the
+    median step ms and the K1 / K2 launch counts of the timed steps."""
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+
+    task = DictTTSTask(bank=bank, device=device)  # the recipe, dropout 0.1 / 0.2 / 0.25 on
+    task.build_state(SEED)
+    rng = np.random.RandomState(SEED)
+    batches = [task.to_device(b) for b in make_train_batches(rng, 4, TRAIN_B, TRAIN_TW, TRAIN_T, BANK_V)]
+    frames = [int(b["mel_lengths"].sum()) for b in batches]
+    n_params = (sum(p.numel() for p in task.model.parameters()), sum(p.numel() for p in task.disc.parameters()))
+    say(f"generator {n_params[0]} params, discriminator {n_params[1]}; real frames per batch {frames}")
+    before = param_snapshot(task)
+    n_g = len(list(task.model.parameters()))
+
+    def step_gen(i):
+        return torch.Generator(device=device).manual_seed(gen_seed + i)
+
+    for i in range(TRAIN_WARMUP):
+        task.train_step(batches[i % len(batches)], step_gen(i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+    times, history = [], []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = task.train_step(batches[i % len(batches)], step_gen(TRAIN_WARMUP + i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        history.append(m)
+    launches = (s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, s2pa_fused.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    keys = list(history[0])
+    if any(list(m) != keys for m in history):
+        raise AssertionError("a training step skipped an update (non-finite loss)")
+    vals = {k: np.array([float(m[k]) for m in history]) for k in keys}
+    bad = [k for k, v in vals.items() if not np.isfinite(v).all()]
+    if bad:
+        raise AssertionError(f"non-finite training losses: {bad}")
+    after = param_snapshot(task)
+    changed_g = any(not torch.equal(a, b) for a, b in zip(before[:n_g], after[:n_g]))
+    changed_d = any(not torch.equal(a, b) for a, b in zip(before[n_g:], after[n_g:]))
+    if not (changed_g and changed_d):
+        raise AssertionError(f"parameters did not change: generator {changed_g}, disc {changed_d}")
+    med = float(np.median(times))
+    say(f"train step ms (host clock after synchronize, {TRAIN_STEPS} steps): median {med:.2f}, "
+        f"mean {np.mean(times):.2f}, min {min(times):.2f}, max {max(times):.2f}; "
+        f"peak memory {peak:.2f} GiB; on {smi}")
+    say("per-step ms " + " ".join(f"{t:.1f}" for t in times))
+    say("losses, first -> last timed step: " + ", ".join(
+        f"{k} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in vals.items()))
+    say(f"K1 + K2 (f32, isolated, phase 6): {k1_ms:.4f} + {k2_ms:.4f} ms = "
+        f"{100 * (k1_ms + k2_ms) / med:.2f} % of the median step, on {smi}")
+    say(f"launches in {TRAIN_STEPS} timed steps: K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
+    if launches != (TRAIN_STEPS, TRAIN_STEPS, 0):
+        raise AssertionError(f"expected K1 and K2 once per step and no K3, got {launches}")
+    profile_steps(task, batches, step_gen, smi)
+    # the same steps with cuDNN autotuning its convolution algorithms, for
+    # comparison only: the rest of the run keeps cuDNN's default heuristics
+    torch.backends.cudnn.benchmark = True
+    for i in range(TRAIN_WARMUP):
+        task.train_step(batches[i % len(batches)], step_gen(2000 + i))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tuned = []
+    for i in range(5):
+        t = time.perf_counter()
+        task.train_step(batches[i % len(batches)], step_gen(2100 + i))
+        torch.cuda.synchronize()
+        tuned.append((time.perf_counter() - t) * 1e3)
+    torch.backends.cudnn.benchmark = False
+    say(f"with cudnn.benchmark=True (comparison only): median step {np.median(tuned):.2f} ms over 5 "
+        f"steps, peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; on {smi}")
+    return med, launches[0], launches[1]
+
+
+def profile_steps(task, batches, step_gen, smi, n=3):
+    """Where a step's device time goes: torch.profiler over n more steps,
+    the top kernels by device time and the device's busy share of the wall
+    clock. Reports, and does not fail, if the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        t = time.perf_counter()
+        for i in range(n):
+            task.train_step(batches[i % len(batches)], step_gen(1000 + i))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages()  # the kernels themselves, not the ops that launch them
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    if not events:
+        say("profiler: no device time recorded (device idle share not measured)")
+        return
+    say(f"profiler over {n} steps ({wall_ms:.1f} ms wall, profiled): device busy {busy_ms:.1f} ms, "
+        f"idle share {100 * (1 - busy_ms / wall_ms):.1f} %, {sum(e.count for e in events)} device "
+        f"op records; on {smi}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
+        say(f"  {e.self_device_time_total / 1e3 / n:9.2f} ms/step {e.count // n:6d} x  {e.key[:110]}")
+    conv_ops = ("aten::cudnn_convolution", "aten::cudnn_convolution_transpose",
+                "aten::convolution_backward")
+    convs = [e for e in prof.key_averages(group_by_input_shape=True)
+             if e.key in conv_ops and e.device_time_total > 0]
+    say("convolutions and their backward by input shape (device time of their kernels):")
+    for e in sorted(convs, key=lambda e: -e.device_time_total)[:8]:
+        say(f"  {e.device_time_total / 1e3 / n:9.2f} ms/step {e.count // n:4d} x  {e.key} "
+            f"{str(e.input_shapes)[:120]}")
+
+
+def trainer_resume(device, bank):
+    """Phase 7b: fit 2 steps (a checkpoint each), resume at step 2 and check
+    the parameters are the saved ones, then fit on to step 3."""
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+    from dicttts_tpu_torch.train.trainer import Trainer
+    from dicttts_tpu_torch.utils.checkpoint import get_all_ckpts
+
+    batches = make_train_batches(np.random.RandomState(SEED + 1), 2, TRAIN_B, TRAIN_TW, TRAIN_T, BANK_V)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as work_dir:
+        task = DictTTSTask(bank=bank, device=device)
+        trainer = Trainer(work_dir, max_updates=2, val_check_interval=1, num_ckpt_keep=2, device=device)
+        trainer.fit(task, batches, batches[:1])
+        names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
+        saved = param_snapshot(task)
+        say(f"fit to step {trainer.global_step}: checkpoints {names}, "
+            f"val total_loss {trainer.val_metrics.get('total_loss', float('nan')):.4f}")
+        if names != ["model_ckpt_steps_2.ckpt", "model_ckpt_steps_1.ckpt"] or task.step != 2:
+            raise AssertionError(f"unexpected checkpoints {names} at step {task.step}")
+        if not all(math.isfinite(v) for v in trainer.val_metrics.values()):
+            raise AssertionError(f"non-finite validation losses {trainer.val_metrics}")
+        resumed = DictTTSTask(bank=bank, device=device)
+        t2 = Trainer(work_dir, max_updates=2, device=device)
+        t2.fit(resumed, batches)
+        same = all(torch.equal(a, b) for a, b in zip(saved, param_snapshot(resumed)))
+        if not (t2.global_step == 2 and resumed.step == 2 and same):
+            raise AssertionError("resume did not restore step 2's parameters")
+        t3 = Trainer(work_dir, max_updates=3, num_ckpt_keep=2, device=device)
+        t3.fit(resumed, batches)
+        names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
+        moved = any(not torch.equal(a, b) for a, b in zip(saved, param_snapshot(resumed)))
+        finite = all(bool(torch.isfinite(p).all()) for p in param_snapshot(resumed))
+        say(f"resumed at step 2 with the saved parameters, fit on to step {t3.global_step}: "
+            f"checkpoints {names}, parameters moved {moved}")
+        if not (t3.global_step == 3 and resumed.step == 3 and moved and finite
+                and names[0] == "model_ckpt_steps_3.ckpt"):
+            raise AssertionError("the resumed run did not continue")
+    if os.path.exists(work_dir):
+        raise AssertionError(f"{work_dir} was not removed")
+
+
+def crop_starts(u, lengths, T):
+    """Crop starts as the discriminator draws them, for given uniforms."""
+    max_len = int(np.max(lengths))
+    return torch.tensor([min(int(np.floor(ui * (max(max_len - w, 0) + 1))), max(T - w, 0))
+                         for ui, w in zip(u, (32, 64, 128))])
+
+
+def train_step_card_vs_cpu(device, bank):
+    """Phase 7c: one step at full width from the same weights on the card
+    and on the CPU (plain versions), dropout 0, pinned noise and crops."""
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+
+    cfg = {"dropout": 0.0, "predictor_dropout": 0.0, "disc_dropout": 0.0}
+    card = DictTTSTask(cfg, bank, device=device)
+    card.build_state(SEED + 2)
+    cpu = DictTTSTask(cfg, {k: v.cpu() for k, v in bank.items()}, device="cpu")
+    cpu.build_state(SEED + 2)
+    cpu.model.load_state_dict(card.model.state_dict())
+    cpu.disc.load_state_dict(card.disc.state_dict())
+    B, Tw, T = 2, 16, 128
+    rng = np.random.RandomState(SEED + 3)
+    batch = make_train_batches(rng, 1, B, Tw, T, BANK_V)[0]
+    eps = torch.tensor(rng.randn(B, T // 4, 16).astype(np.float32))
+    sg = crop_starts(rng.rand(3), batch["mel_lengths"], T)
+    sd = crop_starts(rng.rand(3), batch["mel_lengths"], T)
+    out = {}
+    for name, task in (("card", card), ("cpu", cpu)):
+        dev = task.device
+        t = time.perf_counter()
+        m = task.train_step(task.to_device(batch), eps=eps.to(dev), start_frames_g=sg.to(dev),
+                            start_frames_d=sd.to(dev))
+        out[name] = {k: float(v) for k, v in m.items()}
+        say(f"{name}: one step {(time.perf_counter() - t) * 1e3:.1f} ms")
+    rtol = 2e-3  # f32 on both, TF32 off; summation orders differ through the whole model
+    worst = 0.0
+    for k, ref in out["cpu"].items():
+        got = out["card"][k]
+        rel = abs(got - ref) / max(abs(ref), 1e-6)
+        worst = max(worst, rel)
+        say(f"  {k}: card {got:.6f} cpu {ref:.6f} rel {rel:.2e}")
+    say(f"card vs CPU: worst relative difference {worst:.2e} (tol {rtol:.0e}) over "
+        f"{len(out['cpu'])} losses and gradient norms")
+    if set(out["card"]) != set(out["cpu"]) or worst > rtol:
+        raise AssertionError("card and CPU train steps disagree")
+
+
 def make_requests(rng, n_req, tw, gathered_from=None):
     from dicttts_tpu_torch.serve import Request
 
@@ -206,7 +536,7 @@ def main() -> int:
     from dicttts_tpu_torch.models.dict_tts import DictTTS
     from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
     from dicttts_tpu_torch.ops import cuda_build
-    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd, s2pa_bank_fwd_plain
     from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
     from dicttts_tpu_torch.serve import DictTTSServer
 
@@ -309,8 +639,48 @@ def main() -> int:
     if s2pa_fused.launches != 1 or s2pa_bank_fwd.launches != 0:
         raise AssertionError(f"gathered path launched K3 {s2pa_fused.launches} times")
     k3["launches"] = s2pa_fused.launches
+    k1["launches_by_path"] = {"serving": k1["launches"]}
+    del server, bank, acoustic, vocoder, batches, results
+    torch.cuda.empty_cache()
+    say(f"phases 0-5 done at {time.time() - T_START:.1f} s")
 
-    print(json.dumps({"kernels": [k1, k3]}), flush=True)
+    N = TRAIN_B * TRAIN_TW
+    say(f"phase 6: K2 s2pa_bank_bwd vs plain at V=8000 L=96 E=768 N={N} (training geometry)")
+    args_f32, k2 = check_bank_bwd_kernel(device, gen, torch.float32, N)
+    check_bank_autograd(args_f32)
+    k1_train_ms = time_ms(lambda: s2pa_bank_fwd(*args_f32))
+    k1_train_plain_ms = time_ms(lambda: s2pa_bank_fwd_plain(*args_f32), iters=5)
+    k1_train_bound, k1_train_by, k1_bytes, _ = bank_fwd_bound(args_f32)
+    say(f"K1 float32 at the training geometry (N={N}): kernel {k1_train_ms:.4f} ms, plain "
+        f"{k1_train_plain_ms:.4f} ms, bound {k1_train_bound:.4f} ms ({k1_train_by}; "
+        f"{k1_bytes / 1e6:.1f} MB) on {smi}")
+    k1.update(train_f32_ms=k1_train_ms, train_f32_plain_ms=k1_train_plain_ms,
+              train_f32_bound_ms=k1_train_bound)
+    del args_f32
+    torch.cuda.empty_cache()
+    args_bf16, _ = check_bank_bwd_kernel(device, gen, torch.bfloat16, N)
+    del args_bf16
+    torch.cuda.empty_cache()
+    say(f"phase 6 done at {time.time() - T_START:.1f} s")
+
+    say(f"phase 7: training at production width, B={TRAIN_B} Tw={TRAIN_TW} T={TRAIN_T}, f32 bank")
+    train_bank = make_bank(device, gen, torch.float32)
+    _, k1_train, k2_train = train_full_width(device, train_bank, SEED, k1_train_ms, k2["ms"], smi)
+    k1["launches_by_path"]["training"] = k1_train
+    k1["launches"] += k1_train
+    k2["launches"] = k2_train
+    k2["launches_by_path"] = {"training": k2_train}
+    say(f"phase 7 done at {time.time() - T_START:.1f} s")
+
+    say("phase 7b: Trainer.fit, checkpoint, resume")
+    trainer_resume(device, train_bank)
+    say(f"phase 7b done at {time.time() - T_START:.1f} s")
+
+    say("phase 7c: one train step on the card and on the CPU, same weights, dropout 0")
+    train_step_card_vs_cpu(device, train_bank)
+    say(f"phase 7c done at {time.time() - T_START:.1f} s")
+
+    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
     print(f"chip_smoke total {time.time() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

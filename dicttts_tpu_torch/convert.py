@@ -12,7 +12,12 @@ the flax tree exactly. Layout rules:
 - Conv kernel [k, in, out] -> Conv1d weight [out, in, k];
 - ConvTranspose kernel [k, in, out] (flipped-adjoint convention) ->
   ConvTranspose1d weight [in, out, k] with the tap axis reversed;
+- Conv2d kernel [kh, kw, in, out] (HWIO) -> Conv2d weight [out, in, kh, kw];
 - Embedding and LayerNorm parameters are unchanged.
+
+The discriminator has no converter in the JAX package;
+``discriminator_state`` maps its flax tree directly. The same functions
+map a gradient tree, which has the parameters' layout.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from torch import nn
 
 from dicttts_tpu_torch.models.dict_encoder import DictEncoder, S2PAAttention
 from dicttts_tpu_torch.models.dict_tts import DictTTS
+from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
 from dicttts_tpu_torch.models.duration import DurationPredictor
 from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.fvae import FVAE
@@ -174,12 +180,32 @@ def hifigan_state(p: dict, module: HifiGanGenerator) -> dict:
     return out
 
 
+def discriminator_state(params_d: dict) -> dict:
+    """MultiWindowDiscriminator: flax tree {'win_<w>': {'conv_<i>', 'in_gamma_<i>',
+    'in_beta_<i>', 'adv'}} -> the port's ``state_dict``."""
+    out: dict = {}
+    for win, p in params_d.items():
+        pre = f"discs.{win}."
+        for name, leaf in p.items():
+            if name.startswith("conv_"):
+                out[f"{pre}{name}.weight"] = np.transpose(np.asarray(leaf["kernel"]), (3, 2, 0, 1))
+                out[f"{pre}{name}.bias"] = leaf["bias"]
+            elif name == "adv":
+                out[f"{pre}adv.weight"] = _dense(leaf["kernel"])
+                out[f"{pre}adv.bias"] = leaf["bias"]
+            else:  # in_gamma_<i>, in_beta_<i>
+                out[f"{pre}{name}"] = leaf
+    return out
+
+
 def jax_params_to_state(module: nn.Module, params: dict) -> dict:
     """The port ``state_dict`` (numpy arrays) equivalent to a flax tree."""
     if isinstance(module, DictTTS):
         return dict_tts_state(params, module)
     if isinstance(module, HifiGanGenerator):
         return hifigan_state(params, module)
+    if isinstance(module, MultiWindowDiscriminator):
+        return discriminator_state(params)
     if isinstance(module, DictEncoder):
         return dict_encoder_state(params, len(module.S2PA_module.semantic_encoder.attn_layers))
     if isinstance(module, S2PAAttention):

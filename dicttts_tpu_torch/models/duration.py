@@ -12,16 +12,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from dicttts_tpu_torch.models.layers import conv1d_tc
+from dicttts_tpu_torch.models.layers import conv1d_tc, dropout
 
 
 class DurationPredictor(nn.Module):
-    """n_layers of [conv-k SAME, relu, LayerNorm(1e-5)], masked after each,
-    then Linear -> Softplus, masked. Input [B, T, C] -> [B, T] log-duration."""
+    """n_layers of [conv-k SAME, relu, LayerNorm(1e-5), dropout], masked
+    after each, then Linear -> Softplus, masked. Input [B, T, C] -> [B, T]
+    log-duration."""
 
     def __init__(self, in_channels: int, n_chans: int = 128, n_layers: int = 3,
-                 kernel_size: int = 5):
+                 kernel_size: int = 5, dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         layers = []
         for i in range(n_layers):
             # the Sequential slots 0/2/4 (pad, relu, dropout) hold no
@@ -37,10 +39,12 @@ class DurationPredictor(nn.Module):
         self.conv = nn.ModuleList(layers)
         self.linear = nn.Sequential(nn.Linear(n_chans, 1))
 
-    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, nonpadding: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
         for layer in self.conv:
             x = torch.relu(conv1d_tc(x, layer[1]))
-            x = layer[3](x) * nonpadding[:, :, None]
+            x = dropout(layer[3](x), self.dropout_rate, self.training, generator)
+            x = x * nonpadding[:, :, None]
         return F.softplus(self.linear(x)[..., 0]) * nonpadding
 
 

@@ -1,7 +1,8 @@
-"""Residual affine coupling flow, the FVAE prior, in the reverse direction.
+"""Residual affine coupling flow, the FVAE prior.
 
 Port of ``dicttts_tpu/models/flows.py`` (mean-only coupling, WN coupling
-net) for sampling. Runs in f32. Parameter names follow the reference
+net): forward (z_q -> z_p, for the KL in training) and reverse (sampling).
+Runs in f32. Parameter names follow the reference
 (``flows.{2i}.pre/enc/post``; the odd slots are parameter-free channel
 flips), which ``convert_coupling_block`` reads.
 """
@@ -24,13 +25,20 @@ class ResidualCouplingLayer(nn.Module):
         self.enc = WN(hidden_channels, kernel_size, dilation_rate, n_layers, gin_channels)
         self.post = nn.Conv1d(hidden_channels, self.half, 1)
 
+    def _mean(self, x0: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None) -> torch.Tensor:
+        h = linear_1x1(x0, self.pre) * x_mask
+        h = self.enc(h, x_mask, g)
+        return linear_1x1(h, self.post) * x_mask
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+        # x: [B, T, C]; x_mask: [B, T, 1]; mean-only: x1 <- (m + x1) * mask
+        x0, x1 = x[..., :self.half], x[..., self.half:]
+        return torch.cat([x0, (self._mean(x0, x_mask, g) + x1) * x_mask], dim=-1)
+
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
         # x: [B, T, C]; x_mask: [B, T, 1]; mean-only: x1 <- (x1 - m) * mask
         x0, x1 = x[..., :self.half], x[..., self.half:]
-        h = linear_1x1(x0, self.pre) * x_mask
-        h = self.enc(h, x_mask, g)
-        m = linear_1x1(h, self.post) * x_mask
-        return torch.cat([x0, (x1 - m) * x_mask], dim=-1)
+        return torch.cat([x0, (x1 - self._mean(x0, x_mask, g)) * x_mask], dim=-1)
 
 
 class Flip(nn.Module):
@@ -50,6 +58,15 @@ class ResidualCouplingBlock(nn.Module):
                                                dilation_rate, n_layers, gin_channels))
             flows.append(Flip())
         self.flows = nn.ModuleList(flows)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
+        """Forward flow: z -> z_p, each coupling layer followed by its flip."""
+        x, x_mask = x.float(), x_mask.float()
+        g = None if g is None else g.float()
+        for i in range(0, len(self.flows), 2):
+            x = self.flows[i](x, x_mask, g)
+            x = self.flows[i + 1](x)
+        return x
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
         """Inverse flow: z_p -> z, undoing coupling layers last to first."""

@@ -1,11 +1,13 @@
-"""Frame-level VAE mel decoder with a residual-coupling prior, infer mode.
+"""Frame-level VAE mel decoder with a residual-coupling prior.
 
-Port of ``dicttts_tpu/models/fvae.py`` for sampling: the prior latent is
-drawn (or given), run backwards through the prior flow conditioned on the
-strided word-state conditioning, and decoded to mel frames. The posterior
-encoder is used only in training, which a later port covers; its
-parameters are kept here (``FVAEEncoder``) so checkpoints carry across.
-Parameter names follow the reference (``g_pre_net.0``,
+Port of ``dicttts_tpu/models/fvae.py``. Training (``FVAE.forward``): the
+posterior encoder reads the target mel, samples z_q, the decoder rebuilds
+the mel from it, and the KL term holds z_q against the prior through the
+forward flow, reduced in f32. Inference (``FVAE.infer``): the prior latent
+is drawn (or given), run backwards through the prior flow conditioned on
+the strided word-state conditioning, and decoded to mel frames. The
+posterior's noise is drawn from a ``torch.Generator`` or passed in as
+``eps``. No dropout, as in the JAX package. Parameter names follow the reference (``g_pre_net.0``,
 ``decoder.pre_net.0``, ``decoder.wn``, ...), which ``convert_fvae`` reads.
 """
 
@@ -20,6 +22,16 @@ from torch import nn
 from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.layers import linear_1x1
 from dicttts_tpu_torch.models.wavenet import WN
+
+LOG2PI = math.log(2 * math.pi)
+
+
+def normal_log_prob(x: torch.Tensor, mean: torch.Tensor, log_std: torch.Tensor) -> torch.Tensor:
+    return -0.5 * (LOG2PI + 2 * log_std + torch.exp(-2 * log_std) * torch.square(x - mean))
+
+
+def standard_normal_log_prob(x: torch.Tensor) -> torch.Tensor:
+    return -0.5 * (LOG2PI + torch.square(x))
 
 
 def strided_prenet(in_channels: int, hidden_channels: int, strides: Sequence[int]) -> nn.ModuleList:
@@ -39,14 +51,34 @@ def run_prenet(x: torch.Tensor, convs: nn.ModuleList) -> torch.Tensor:
 
 
 class FVAEEncoder(nn.Module):
-    """Posterior encoder parameters (train mode only; not run at inference)."""
+    """Posterior encoder (training only): strided prenet, WN, projection to
+    the latent mean and log-std, reparameterised sample."""
 
     def __init__(self, in_channels: int, hidden_channels: int, latent_channels: int,
                  kernel_size: int, n_layers: int, gin_channels: int, strides: Sequence[int]):
         super().__init__()
+        self.latent_channels = latent_channels
+        self.stride = math.prod(strides)
         self.pre_net = strided_prenet(in_channels, hidden_channels, strides)
         self.wn = WN(hidden_channels, kernel_size, 1, n_layers, gin_channels)
         self.out_proj = nn.Conv1d(hidden_channels, 2 * latent_channels, 1)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor,
+                eps: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                noise_scale: float = 1.0):
+        """x: [B, T, C_mel]; x_mask: [B, T, 1]; g: [B, T / stride, C_g].
+        eps: optional [B, T / stride, latent] standard-normal sample (else
+        drawn from ``generator``). Returns (z, m, logs, x_mask_sqz)."""
+        x = run_prenet(x, self.pre_net)
+        x_mask_sqz = x_mask[:, ::self.stride][:, :x.shape[1]].to(x.dtype)
+        x = self.wn(x * x_mask_sqz, x_mask_sqz, g) * x_mask_sqz
+        stats = linear_1x1(x, self.out_proj)
+        m = stats[..., :self.latent_channels].float()
+        logs = stats[..., self.latent_channels:].float()
+        if eps is None:
+            eps = torch.randn(m.shape, generator=generator, device=m.device, dtype=torch.float32)
+        z = m + eps.float() * noise_scale * torch.exp(logs)
+        return z, m, logs, x_mask_sqz
 
 
 class FVAEDecoder(nn.Module):
@@ -82,6 +114,23 @@ class FVAE(nn.Module):
         # as the JAX module: flow_n_steps WN layers in each of 4 coupling layers
         self.prior_flow = ResidualCouplingBlock(latent_size, flow_hidden, flow_kernel_size, 1,
                                                 flow_n_steps, 4, gin_channels=gin_channels)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor,
+                eps: torch.Tensor | None = None, generator: torch.Generator | None = None,
+                noise_scale: float = 1.0):
+        """Training: x [B, T, C_out] target mel, x_mask [B, T, 1], g
+        [B, T, C_g]. Returns (x_recon, loss_kl, z_p, m_q, logs_q); the KL is
+        sum((log q(z_q) - log p(z_p)) * mask) / max(frames, 1) / latent."""
+        g_sqz = run_prenet(g, self.g_pre_net)
+        z_q, m_q, logs_q, x_mask_sqz = self.encoder(x, x_mask, g_sqz, eps, generator, noise_scale)
+        x_recon = self.decoder(z_q, x_mask, g)
+        mask_f32 = x_mask_sqz.float()
+        logqx = normal_log_prob(z_q, m_q, logs_q)
+        z_p = self.prior_flow(z_q.float(), mask_f32, g_sqz)
+        logpx = standard_normal_log_prob(z_p)
+        loss_kl = (torch.sum((logqx - logpx) * mask_f32) / torch.clamp(torch.sum(mask_f32), min=1.0)
+                   / logqx.shape[-1])
+        return x_recon, loss_kl, z_p, m_q, logs_q
 
     def infer(self, g: torch.Tensor, x_mask: torch.Tensor, noise: torch.Tensor | None = None,
               noise_scale: float = 1.0, generator: torch.Generator | None = None):

@@ -27,7 +27,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("s2pa_bank_fwd.cu", "s2pa_fused.cu")
+SOURCES = ("s2pa_bank_fwd.cu", "s2pa_bank_bwd.cu", "s2pa_fused.cu")
+HEADERS = ("s2pa_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
@@ -37,6 +38,7 @@ _I = ctypes.c_int
 # name -> argtypes of the C entry points (all return a cudaError_t as int)
 SIGNATURES = {
     "s2pa_bank_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "s2pa_bank_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "s2pa_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
@@ -58,7 +60,7 @@ def find_nvcc() -> str:
 
 def source_digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]

@@ -1,17 +1,22 @@
-"""S2PA attention over the un-gathered ``[V, L, E]`` dict bank, forward (K1).
+"""S2PA attention over the un-gathered ``[V, L, E]`` dict bank: forward
+(K1), backward (K2) and the autograd function that joins them.
 
-Replaces the Pallas TPU kernel ``s2pa_bank_attend`` forward
-(``dicttts_tpu/ops/s2pa_bank_pallas.py``, ``_fwd_call`` / ``_fwd_kernel``)
-with the hand-written CUDA kernel ``csrc/s2pa_bank_fwd.cu``.
+Replaces the Pallas TPU kernel ``s2pa_bank_attend``
+(``dicttts_tpu/ops/s2pa_bank_pallas.py``): its forward ``_fwd_call`` /
+``_fwd_kernel`` with the hand-written CUDA kernel ``csrc/s2pa_bank_fwd.cu``,
+and its backward ``_bwd_call`` / ``_bwd_kernel`` (wired by ``_attend_bwd``)
+with ``csrc/s2pa_bank_bwd.cu``.
 
-What bounds it on the H100 is bytes: each word slot reads one 147 KB bank
-row (L=96, E=768, bf16) for 4*L*E flops. The kernel gathers each row itself
-(one block per slot) and reads it once from device memory, so the
-``[B, Tw, L, E]`` gathered copy that ``s2pa_bank_fwd_plain`` builds is
-never written; see the source for the block layout.
+What bounds both on the H100 is bytes: each word slot reads one bank row
+(147 KB in bf16, 295 KB in f32 at L=96, E=768) for 4*L*E (forward) or
+6*L*E (backward) flops. Each kernel gathers its rows itself (one block per
+slot) and reads each once from device memory, so the ``[B, Tw, L, E]``
+gathered copy that the plain versions build is never written; see the
+sources for the block layout.
 
-``s2pa_bank_fwd`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
+``s2pa_bank_fwd`` and ``s2pa_bank_bwd`` take the plain version for CPU
+tensors and launch the kernel for CUDA tensors; they never fall back from
+one to the other.
 """
 
 from __future__ import annotations
@@ -36,6 +41,22 @@ def s2pa_bank_fwd_plain(bank, wt, qe, km, mask):
     return ctx, w
 
 
+def s2pa_bank_bwd_plain(bank, wt, qe, km, mask, g_ctx, g_w):
+    """Plain PyTorch version of K2: recompute w from the gathered rows, then
+    the softmax VJP; g_ctx and d_logits are rounded to the bank dtype before
+    their products, as the TPU kernel does. d_logits is 0 where km == 0,
+    since a masked logit is the constant -1e9: this changes only all-masked
+    slots, where the TPU kernel's d_qe is not the gradient of its forward.
+    Returns d_qe in qe's dtype."""
+    rows = bank[wt.long()].float()  # [N, L, E]
+    logits = torch.einsum("nle,ne->nl", rows, qe.float())
+    w = torch.softmax(torch.where(km != 0, logits, MASK_VALUE), dim=-1)
+    d_wd = torch.einsum("nle,ne->nl", rows, g_ctx.to(bank.dtype).float())
+    d_w = d_wd * mask + g_w
+    d_logits = torch.where(km != 0, w * (d_w - (w * d_w).sum(dim=-1, keepdim=True)), 0.0)
+    return torch.einsum("nl,nle->ne", d_logits.to(bank.dtype).float(), rows).to(qe.dtype)
+
+
 def _check(bank, wt, qe, km, mask):
     if bank.ndim != 3:
         raise ValueError(f"bank must be [V, L, E], got {tuple(bank.shape)}")
@@ -56,6 +77,15 @@ def _check(bank, wt, qe, km, mask):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+def _check_cuda(name, L, E, smem_floats, tensors):
+    if E % 8:
+        raise ValueError(f"the CUDA kernel needs E % 8 == 0 (16-byte loads), got E={E}")
+    if smem_floats * 4 > 48 * 1024:
+        raise ValueError(f"L={L}, E={E} exceed the {name} kernel's 48 KB shared memory")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors")
+
+
 def s2pa_bank_fwd(bank, wt, qe, km, mask):
     """Gather-fused S2PA forward.
 
@@ -73,12 +103,7 @@ def s2pa_bank_fwd(bank, wt, qe, km, mask):
         raise ValueError(f"s2pa_bank_fwd runs on cpu or cuda, not {device}")
     _, L, E = bank.shape
     N = wt.shape[0]
-    if E % 8:
-        raise ValueError(f"the CUDA kernel needs E % 8 == 0 (16-byte loads), got E={E}")
-    if (E + L) * 4 > 48 * 1024:
-        raise ValueError(f"E + L = {E + L} exceeds the kernel's 48 KB shared memory")
-    if not all(t.is_contiguous() for t in (bank, wt, qe, km, mask)):
-        raise ValueError("s2pa_bank_fwd needs contiguous tensors")
+    _check_cuda("s2pa_bank_fwd", L, E, E + L, (bank, wt, qe, km, mask))
     ctx = torch.empty_like(qe)
     w = torch.empty((N, L), dtype=torch.float32, device=device)
     if N:
@@ -94,3 +119,63 @@ def s2pa_bank_fwd(bank, wt, qe, km, mask):
 
 
 s2pa_bank_fwd.launches = 0
+
+
+def s2pa_bank_bwd(bank, wt, qe, km, mask, g_ctx, g_w):
+    """Gather-fused S2PA backward: the gradient of ``s2pa_bank_fwd``'s
+    (ctx_e, w) with respect to qe. Same inputs as the forward, plus
+    g_ctx [N, E] in qe's dtype and g_w [N, L] f32. Returns d_qe [N, E] in
+    qe's dtype; the bank gets no gradient (it is constant in training)."""
+    _check(bank, wt, qe, km, mask)
+    N, E = qe.shape
+    if g_ctx.shape != (N, E) or g_ctx.dtype != qe.dtype:
+        raise ValueError(f"g_ctx must be [{N}, {E}] {qe.dtype}, got {tuple(g_ctx.shape)} {g_ctx.dtype}")
+    if g_w.shape != mask.shape or g_w.dtype != torch.float32:
+        raise ValueError(f"g_w must be {tuple(mask.shape)} float32, got {tuple(g_w.shape)} {g_w.dtype}")
+    device = bank.device
+    if g_ctx.device != device or g_w.device != device:
+        raise ValueError(f"gradients on {g_ctx.device}/{g_w.device}, inputs on {device}")
+    if device.type == "cpu":
+        return s2pa_bank_bwd_plain(bank, wt, qe, km, mask, g_ctx, g_w)
+    if device.type != "cuda":
+        raise ValueError(f"s2pa_bank_bwd runs on cpu or cuda, not {device}")
+    L = bank.shape[1]
+    _check_cuda("s2pa_bank_bwd", L, E, 2 * (E + L), (bank, wt, qe, km, mask, g_ctx, g_w))
+    d_qe = torch.empty_like(qe)
+    if N:
+        with torch.cuda.device(device):
+            rc = cuda_build.library().s2pa_bank_bwd(
+                bank.data_ptr(), wt.data_ptr(), qe.data_ptr(), km.data_ptr(), mask.data_ptr(),
+                g_ctx.data_ptr(), g_w.data_ptr(), d_qe.data_ptr(), N, L, E,
+                int(bank.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
+            )
+        cuda_build.check_launch("s2pa_bank_bwd", rc)
+        s2pa_bank_bwd.launches += 1
+    return d_qe
+
+
+s2pa_bank_bwd.launches = 0
+
+
+class S2PABankAttend(torch.autograd.Function):
+    """(ctx_e, w) = s2pa_bank_fwd(bank, wt, qe, km, mask) with K2 as its
+    backward. Saves the five inputs, never a gathered [N, L, E] copy; only
+    qe gets a gradient (the bank is constant, the mask is a fixed
+    keep-scale, wt and km are integers)."""
+
+    @staticmethod
+    def forward(ctx, bank, wt, qe, km, mask):
+        ctx.save_for_backward(bank, wt, qe, km, mask)
+        return s2pa_bank_fwd(bank, wt, qe, km, mask)
+
+    @staticmethod
+    def backward(ctx, g_ctx, g_w):
+        bank, wt, qe, km, mask = ctx.saved_tensors
+        d_qe = s2pa_bank_bwd(bank, wt, qe, km, mask, g_ctx.contiguous(), g_w.contiguous())
+        return None, None, d_qe, None, None
+
+
+def s2pa_bank_attend(bank, wt, qe, km, mask):
+    """Differentiable gather-fused S2PA over the bank (K1 forward, K2
+    backward); arguments and results as ``s2pa_bank_fwd``."""
+    return S2PABankAttend.apply(bank, wt, qe, km, mask)

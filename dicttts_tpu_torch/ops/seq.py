@@ -68,3 +68,16 @@ def pad_frames_multiple(mel2token: torch.Tensor, frames_multiple: int) -> torch.
     last = torch.gather(mel2token, 1, torch.clamp(lengths - 1, min=0).long()[:, None])  # [B, 1]
     extend = (frames >= lengths[:, None]) & (frames < padded_len[:, None])
     return torch.where(extend, last, mel2token)
+
+
+def mel2token_to_dur(mel2token: torch.Tensor, max_tokens: int) -> torch.Tensor:
+    """Invert a mel2token map [B, F] (1-based, 0 = pad) into per-token
+    durations [B, max_tokens] int32."""
+    ids = torch.arange(1, max_tokens + 1, device=mel2token.device, dtype=mel2token.dtype)
+    return (mel2token[:, :, None] == ids).sum(dim=1).to(torch.int32)
+
+
+def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean of x over positions where mask is nonzero (mask broadcasts to x)."""
+    mask = mask.to(x.dtype).expand_as(x)
+    return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)

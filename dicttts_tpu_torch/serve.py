@@ -45,6 +45,15 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def pinyin_decode(pron_attn: torch.Tensor, pinyin: torch.Tensor) -> torch.Tensor:
+    """[B, Tw, P] pronunciation weights, [B, Tw, P] pinyin ids -> [B, Tw, 2]:
+    the argmax pinyin slot and the next one, the winning sense's initial and
+    final (each sense owns two slots)."""
+    pron_idx = torch.argmax(pron_attn, dim=-1)  # [B, Tw]
+    idx2 = torch.stack([pron_idx, torch.clamp(pron_idx + 1, max=pinyin.shape[2] - 1)], dim=-1)
+    return torch.gather(pinyin, 2, idx2)
+
+
 @dataclass
 class Request:
     """One utterance: word ids with BOS/EOS ([n] ints, 0 = pad), sandhi
@@ -126,8 +135,7 @@ class DictTTSServer:
                        noise: torch.Tensor | None = None) -> dict:
         """The acoustic pass of ``test_step``: mel_out [B, max_frames, 80],
         mel2word [B, max_frames], pron_attn [B, Tw, P] and pinyin_pred
-        [B, Tw, 2] (argmax pinyin slot and the next one: the winning
-        sense's initial and final)."""
+        [B, Tw, 2] (``pinyin_decode``)."""
         word_tokens, pron_modified, dm = self.collate(requests)
         generator = None
         if noise is None:
@@ -136,11 +144,9 @@ class DictTTSServer:
             noise = noise.to(self.device)
         out = self.acoustic(word_tokens, dm, pron_modified, max_frames=self.max_frames,
                             noise=noise, generator=generator)
-        pron_idx = torch.argmax(out["pron_attn"], dim=-1)  # [B, Tw]
-        idx2 = torch.stack([pron_idx, torch.clamp(pron_idx + 1, max=dm.pinyin.shape[2] - 1)], dim=-1)
         return {
             "mel_out": out["mel_out"], "mel2word": out["mel2word"], "pron_attn": out["pron_attn"],
-            "pinyin_pred": torch.gather(dm.pinyin, 2, idx2),
+            "pinyin_pred": pinyin_decode(out["pron_attn"], dm.pinyin),
         }
 
     @torch.no_grad()

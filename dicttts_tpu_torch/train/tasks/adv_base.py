@@ -1,0 +1,184 @@
+"""Shared GAN machinery for acoustic-model tasks with the multi-window mel
+discriminator.
+
+Port of ``dicttts_tpu/train/tasks/adv_base.py`` (``AdversarialTTSTask``).
+Subclasses provide the generator (``self.model``), ``_gen_losses`` and
+``_dict_msg``-style batch handling; this base owns the discriminator, both
+AdamW optimizers with their schedules, and the two-optimizer train step.
+
+One step, as in the JAX package:
+
+1. the generator loss, with the adversarial term scored by the *current*
+   discriminator, whose parameters are frozen for that pass so its
+   backward leaves them no gradient;
+2. the discriminator loss on this step's detached generator output, real
+   and fake in one stacked pass with shared crop starts;
+3. the updates: each optimizer clips to its global norm by optax's rule
+   (scale by max/norm when norm >= max), then steps AdamW with the
+   schedule read at its own update count. A non-finite generator loss
+   skips the generator update and leaves its optimizer untouched; while
+   the discriminator is gated off (step < disc_start_steps, or step %
+   disc_interval != 0) its optimizer and schedule do not step.
+
+torch's AdamW is optax's ``adamw`` rule: bias-corrected moments, eps added
+to the root of the second moment, decoupled weight decay applied as
+lr * wd * param. Parameters that got no gradient are stepped with a zero
+gradient, as optax does.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
+from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
+
+
+def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
+    """optax.clip_by_global_norm in place: multiply every gradient by
+    max_norm / norm when the global norm >= max_norm. Returns the norm
+    before clipping, as a device scalar."""
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale.to(g.dtype))
+    return norm
+
+
+@contextlib.contextmanager
+def frozen(module: torch.nn.Module):
+    """Run a forward whose backward must leave ``module``'s parameters no
+    gradient."""
+    flags = [p.requires_grad for p in module.parameters()]
+    module.requires_grad_(False)
+    try:
+        yield module
+    finally:
+        for p, f in zip(module.parameters(), flags):
+            p.requires_grad_(f)
+
+
+class AdversarialTTSTask:
+    """Base: generator + multi-window mel discriminator training."""
+
+    def _init_adv(self, cfg: dict) -> None:
+        self.lambda_adv = cfg["lambda_mel_adv"]
+        self.disc_start_steps = cfg["disc_start_steps"]
+        self.disc_interval = cfg["disc_interval"]
+        self.schedule_g = rsqrt_schedule(cfg["lr"], cfg["warmup_updates"], cfg["hidden_size"])
+        sched = cfg["discriminator_scheduler_params"]
+        self.schedule_d = step_decay_schedule(cfg["disc_lr"], sched["step_size"], sched["gamma"])
+
+    def _build_disc(self) -> MultiWindowDiscriminator:
+        cfg = self.cfg
+        return MultiWindowDiscriminator(
+            time_lengths=(32, 64, 128)[:cfg["disc_win_num"]],
+            freq_length=cfg["audio_num_mel_bins"], hidden_size=cfg["mel_disc_hidden_size"],
+            dropout_rate=cfg["disc_dropout"])
+
+    def _build_optimizers(self) -> None:
+        cfg = self.cfg
+        betas = (cfg["optimizer_adam_beta1"], cfg["optimizer_adam_beta2"])
+        opt_p = cfg["discriminator_optimizer_params"]
+        self.opt_g = torch.optim.AdamW(self.model.parameters(), lr=self.schedule_g(0), betas=betas,
+                                       eps=1e-8, weight_decay=cfg["weight_decay"])
+        self.opt_d = torch.optim.AdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
+                                       eps=opt_p["eps"], weight_decay=opt_p["weight_decay"])
+        self.step = 0  # train steps taken
+        self.updates_g = 0  # optimizer updates applied (the schedules' counts)
+        self.updates_d = 0
+
+    # subclass contract:
+    #   _gen_losses(batch, generator, train, adv_w=1.0, eps=None, start_frames=None)
+    #     -> (total_loss, losses_dict, model_out_dict with 'mel_out')
+
+    def _adv_gen_loss(self, mel_pred, mel_lengths, generator=None, start_frames=None):
+        """LSGAN-to-1 term of the generator objective; the discriminator is
+        frozen, so the backward reaches the generator only."""
+        with frozen(self.disc):
+            d_out = self.disc(mel_pred, mel_lengths, start_frames, generator)
+        return torch.mean(torch.square(d_out["y"] - 1.0) * d_out["win_valid"][None, :])
+
+    def _disc_losses(self, mel_fake, mel_real, lengths, generator=None, start_frames=None):
+        """Real and fake in one stacked pass, crop starts shared."""
+        B = mel_real.shape[0]
+        out = self.disc(torch.cat([mel_real, mel_fake]), torch.cat([lengths, lengths]),
+                        start_frames, generator)
+        wv = out["win_valid"][None, :]
+        loss_r = torch.mean(torch.square(out["y"][:B] - 1.0) * wv)
+        loss_f = torch.mean(torch.square(out["y"][B:]) * wv)
+        return loss_r + loss_f, {"r": loss_r, "f": loss_f}
+
+    def _update(self, opt, params, max_norm: float, lr: float) -> torch.Tensor:
+        """Clip, set the scheduled lr, step; returns the pre-clip norm."""
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        norm = clip_by_global_norm_([p.grad for p in params], max_norm)
+        for group in opt.param_groups:
+            group["lr"] = lr
+        opt.step()
+        return norm
+
+    def train_step(self, batch: dict, generator: torch.Generator | None = None, *,
+                   eps: torch.Tensor | None = None, start_frames_g=None, start_frames_d=None) -> dict:
+        """One GAN step on a device batch. ``generator`` draws the dropout
+        masks, the posterior noise and the crop starts; ``eps`` and the two
+        sets of crop starts (the generator's adversarial term, the
+        discriminator loss) may be given instead. Returns the losses, and
+        the pre-clip gradient norm of each parameter set that was updated,
+        as device scalars."""
+        step = self.step
+        adv_on = step >= self.disc_start_steps and self.lambda_adv > 0
+        disc_on = adv_on and step % self.disc_interval == 0
+        self.model.train()
+        self.disc.train()
+        self.opt_g.zero_grad(set_to_none=True)
+        self.opt_d.zero_grad(set_to_none=True)
+        loss_g, g_losses, out = self._gen_losses(batch, generator, True, float(adv_on), eps,
+                                                 start_frames_g)
+        loss_g.backward()
+        with torch.set_grad_enabled(disc_on):
+            loss_d, d_losses = self._disc_losses(out["mel_out"].detach(), batch["mels"],
+                                                 batch["mel_lengths"], generator, start_frames_d)
+        if disc_on:
+            loss_d.backward()
+        metrics = {**{k: v.detach() for k, v in {**g_losses, **d_losses}.items()},
+                   "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()}
+        if bool(torch.isfinite(loss_g)):  # the step's one host sync
+            metrics["grad_norm_g"] = self._update(
+                self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
+                self.schedule_g(self.updates_g))
+            self.updates_g += 1
+        if disc_on:
+            metrics["grad_norm_d"] = self._update(
+                self.opt_d, list(self.disc.parameters()), self.cfg["discriminator_grad_norm"],
+                self.schedule_d(self.updates_d))
+            self.updates_d += 1
+        self.step += 1
+        return metrics
+
+    @torch.no_grad()
+    def val_step(self, batch: dict, generator: torch.Generator | None = None,
+                 eps: torch.Tensor | None = None) -> dict:
+        """Generator losses in eval mode (no dropout, no adversarial term)."""
+        self.model.eval()
+        _, losses, _ = self._gen_losses(batch, generator, False, eps=eps)
+        losses["total_loss"] = sum(losses.values())
+        return losses
+
+    def state_dict(self) -> dict:
+        """Everything a resume needs; device constants (the bank) excluded."""
+        return {"params_g": self.model.state_dict(), "params_d": self.disc.state_dict(),
+                "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
+                "step": self.step, "updates_g": self.updates_g, "updates_d": self.updates_d}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.model.load_state_dict(state["params_g"])
+        self.disc.load_state_dict(state["params_d"])
+        self.opt_g.load_state_dict(state["opt_g"])
+        self.opt_d.load_state_dict(state["opt_d"])
+        self.step, self.updates_g, self.updates_d = (
+            int(state["step"]), int(state["updates_g"]), int(state["updates_d"]))

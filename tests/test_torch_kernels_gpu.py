@@ -9,14 +9,18 @@ has only PyTorch; there, skip the JAX-importing conftest:
 Tolerances: f32 K1 w atol 2e-6 and ctx atol 2e-5, K3 atol 1e-5 (the JAX
 package's own for these kernels); bf16 K1 ctx atol 2**-7 * max|ctx|, two
 bf16 ulps, because the output and w*mask are rounded to bf16 and an f32
-last-bit difference can flip a rounding.
+last-bit difference can flip a rounding. K2 f32 d_qe atol 2e-5 * max|d_qe|
+(summation order only); bf16 d_qe 2**-7 * max|d_qe| (d_logits and d_qe are
+rounded to bf16). The autograd function's gradient against autograd
+through the plain forward: rtol/atol 2e-4 (the JAX package's own).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd, s2pa_bank_fwd_plain
+from dicttts_tpu_torch.ops.s2pa_bank import (s2pa_bank_attend, s2pa_bank_bwd, s2pa_bank_bwd_plain,
+                                             s2pa_bank_fwd, s2pa_bank_fwd_plain)
 from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
 
 pytestmark = pytest.mark.gpu
@@ -55,6 +59,42 @@ def test_bank_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(w, w_p, rtol=0, atol=2e-6)
     atol = 2e-5 if dtype == torch.float32 else 2 ** -7 * ctx_p.float().abs().max().item()
     torch.testing.assert_close(ctx.float(), ctx_p.float(), rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(24, 16, 128, 21), (50, 96, 768, 300), (5, 7, 8, 1)])
+def test_bank_bwd_kernel_matches_plain(cuda, dtype, shape):
+    V, L, E, N = shape
+    args = _bank_args(cuda, 4, V, L, E, N, dtype)
+    rng = np.random.RandomState(5)
+    g_ctx = torch.tensor(rng.randn(N, E).astype(np.float32), device=cuda).to(dtype)
+    g_w = torch.tensor(rng.randn(N, L).astype(np.float32), device=cuda)
+    before = s2pa_bank_bwd.launches
+    d_qe = s2pa_bank_bwd(*args, g_ctx, g_w)
+    torch.cuda.synchronize()
+    assert s2pa_bank_bwd.launches == before + 1
+    ref = s2pa_bank_bwd_plain(*args, g_ctx, g_w).float()
+    assert d_qe.dtype == dtype and torch.isfinite(d_qe.float()).all()
+    scale = ref.abs().max().item()
+    atol = 2e-5 * scale if dtype == torch.float32 else 2 ** -7 * scale
+    torch.testing.assert_close(d_qe.float(), ref, rtol=0, atol=atol)
+
+
+def test_bank_autograd_matches_plain_gradient(cuda):
+    bank, wt, qe, km, mask = _bank_args(cuda, 6, 50, 96, 768, 301)
+
+    def loss(fwd, q):
+        ctx, w = fwd(bank, wt, q, km, mask)
+        return (ctx ** 2).sum() + torch.sin(w).sum()
+
+    q1 = qe.clone().requires_grad_(True)
+    q2 = qe.clone().requires_grad_(True)
+    before = (s2pa_bank_fwd.launches, s2pa_bank_bwd.launches)
+    loss(s2pa_bank_attend, q1).backward()
+    torch.cuda.synchronize()
+    assert (s2pa_bank_fwd.launches, s2pa_bank_bwd.launches) == (before[0] + 1, before[1] + 1)
+    loss(s2pa_bank_fwd_plain, q2).backward()
+    torch.testing.assert_close(q1.grad, q2.grad, rtol=2e-4, atol=2e-4)
 
 
 def test_bank_kernel_rejects_unaligned_width(cuda):

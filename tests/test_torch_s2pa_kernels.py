@@ -144,10 +144,12 @@ def test_fused_wrapper_rejects(bad):
 def test_build_hash_follows_sources(tmp_path, monkeypatch):
     digest = cuda_build.source_digest()
     assert cuda_build.library_path().name == f"libdicttts_kernels_{digest}.so"
-    for name in cuda_build.SOURCES:
+    for name in cuda_build.SOURCES + cuda_build.HEADERS:
         (tmp_path / name).write_bytes((cuda_build.CSRC_DIR / name).read_bytes())
     monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
     assert cuda_build.source_digest() == digest
-    with open(tmp_path / cuda_build.SOURCES[0], "a") as f:
-        f.write("\n// edited\n")
-    assert cuda_build.source_digest() != digest
+    for name in (cuda_build.SOURCES[0], cuda_build.HEADERS[0]):
+        with open(tmp_path / name, "a") as f:
+            f.write("\n// edited\n")
+        assert cuda_build.source_digest() != digest
+        digest = cuda_build.source_digest()
