@@ -6,9 +6,12 @@
 Phases, each announced on its own line:
  0. the card: name, nvidia-smi name and power limit; TF32 off for f32
     matmuls and convolutions;
- 1. build the CUDA kernels from dicttts_tpu_torch/csrc with nvcc;
+ 1. build the CUDA kernels from dicttts_tpu_torch/csrc with nvcc (one
+    process per source, all at once) and print ptxas's registers, shared
+    memory and spills for each kernel;
  2. K1 (s2pa_bank_fwd) against its plain version at the serving geometry
-    (bank 8000 x 96 x 768, N = 1000 word slots), bf16 and f32, then timed;
+    (bank 8000 x 96 x 768, N = 1000 word slots), bf16 and f32, then timed
+    with L2 flushed before each call, beside its byte bound;
  3. K3 (s2pa_fused) against its plain version at B=16, T=64, L=96, H=192,
     P=8, f32, then timed;
  4. serving at full production width with seeded random weights on the
@@ -16,12 +19,18 @@ Phases, each announced on its own line:
     B=16/Tw=64) word ids -> wav, K1 launched once per batch; one request
     also served on the CPU through the plain versions as a reference;
  5. one batch of gathered-bank serving with use_pallas_s2pa, through K3;
- 6. K2 (s2pa_bank_bwd) against its plain version at the training geometry
-    (bank 8000 x 96 x 768, N = 60 x 64 = 3840 slots, one all-masked slot,
-    a dropout mask), f32 and bf16; the autograd function (K1 + K2) against
-    autograd through K1's plain version; K2 and f32 K1 timed;
+ 6. K1 and K2 (s2pa_bank_bwd) against their plain versions at the
+    training geometry (bank 8000 x 96 x 768, N = 60 x 64 = 3840 slots, one
+    all-masked slot, a dropout mask), bf16 and f32, with three kinds of
+    word ids: laid out as the training batches of the repo's corpus
+    (sentences of 20-58 words padded to 64 slots with id 0; the main
+    case), uniform, and Zipf-distributed (s = 1.1 over the 8000 words);
+    two launches bitwise equal; the autograd function (K1 + K2) against
+    autograd through K1's plain version (f32); each case's kernels timed
+    alone beside their byte bounds (the slot order they share timed on its
+    own), with the distinct rows and the kernels' chunks of slots;
  7. training at production width (the recipe's DictTTSTask, seeded random
-    weights, the f32 device bank, dropout on): synthetic batches of B=60,
+    weights, the recipe's bf16 device bank, dropout on): synthetic batches of B=60,
     Tw=64, 512 frames; 2 warm-up and 20 timed steps; K1 and K2 launched
     once per step, K3 never; then 3 steps under torch.profiler (top
     kernels, convolutions by shape, the device's idle share) and 5 with
@@ -114,32 +123,118 @@ def make_bank(device, gen, dtype=torch.bfloat16):
     return {"keys": keys, "key_map": key_map, "pinyin": pinyin, "pinyin_map": pinyin_map}
 
 
-def bank_fwd_bound(args):
-    """K1's least time for these inputs: (ms, 'bytes' or 'operations',
-    bytes moved, distinct bank rows read)."""
+def time_ms_cold(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over ``iters`` calls, each between its own
+    pair of CUDA events after L2 is flushed (a 128 MB write), so no call
+    finds the previous call's bank rows in the 50 MB L2, as a train step
+    would not. All calls are queued before one synchronize: the host runs
+    ahead of the card, and the wrapper's host time stays outside the events."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    events = []
+    for _ in range(iters):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in events) / iters
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn()'s kernels per call, summed by torch.profiler:
+    for index preparation made of a few small kernels, where CUDA events
+    around each call would count the host's launch gaps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / iters / 1e3
+
+
+def word_ids(gen, N, ids):
+    """[N] int32 word ids on gen's device.
+    "corpus": N / 64 sentences of 64 word slots, laid out as the training
+    collater lays out the repo's corpus (.prod_corpus/binary/train; measured
+    by scripts/corpus_word_id_stats.py): a start id (3), n - 2 words uniform
+    over [4, V), an end id (1), then the pad id 0 up to 64 slots, with n
+    uniform over [20, 58] words (the corpus's range, near uniform): about
+    37 % of the slots are padding (the corpus's own batches: 19-65 %, as
+    they are cut by length), and the words repeat little.
+    "uniform": uniform over the bank. "zipf": P(rank k) ~ k ** -1.1 over the
+    V words, ranks shuffled over the ids, for text that repeats its
+    function words."""
+    dev = gen.device
+    if ids == "corpus":
+        B, Tw = N // TRAIN_TW, TRAIN_TW
+        n = torch.randint(20, 59, (B, 1), generator=gen, device=dev)
+        pos = torch.arange(Tw, device=dev)
+        words = torch.randint(4, BANK_V, (B, Tw), generator=gen, device=dev)
+        wt = torch.where(pos < n - 1, words, torch.where(pos == n - 1, 1, 0))
+        wt[:, 0] = 3
+        return wt.flatten().to(torch.int32)
+    if ids == "uniform":
+        return torch.randint(0, BANK_V, (N,), generator=gen, device=dev, dtype=torch.int32)
+    p = torch.arange(1, BANK_V + 1, device=dev, dtype=torch.float64) ** -1.1
+    ranks = torch.multinomial(p / p.sum(), N, replacement=True, generator=gen)
+    return torch.randperm(BANK_V, generator=gen, device=dev)[ranks].to(torch.int32)
+
+
+def bank_case(device, gen, dtype, N, ids="uniform"):
+    """K1/K2 inputs at V=8000, L=96, E=768: seeded bank, word ids, one
+    all-masked slot, a dropout keep-scale mask (p = 0.1), upstream gradients."""
+    V, L, E = BANK_V, BANK_L, BANK_E
+    bank = torch.randn((V, L, E), generator=gen, device=device).to(dtype)
+    wt = word_ids(gen, N, ids)
+    qe = (torch.randn((N, E), generator=gen, device=device) * (3.0 / math.sqrt(E))).to(dtype)
+    km = torch.randint(0, 4, (N, L), generator=gen, device=device, dtype=torch.int32)
+    km[:, 0] = 1
+    km[7] = 0  # an all-masked slot: uniform weights, zero gradient
+    mask = (torch.rand((N, L), generator=gen, device=device) >= 0.1).float() / 0.9
+    g_ctx = torch.randn((N, E), generator=gen, device=device).to(dtype)
+    g_w = torch.randn((N, L), generator=gen, device=device)
+    return (bank, wt, qe, km, mask), g_ctx, g_w
+
+
+def bank_bound(args, bwd):
+    """K1's (or K2's) least time for these inputs: (ms, 'bytes' or
+    'operations', bytes moved, distinct bank rows read). Each distinct row
+    is read once, and each of the function's other inputs and outputs."""
     bank, wt, qe, km, mask = args
     _, L, E = bank.shape
     N, elt = wt.shape[0], bank.element_size()
     n_rows = torch.unique(wt).numel()  # bank rows this run's ids read
-    n_bytes = (n_rows * L * E * elt + N * 4 + N * E * elt + 2 * N * L * 4  # in: rows, wt, qe, km, mask
-               + N * E * elt + N * L * 4)  # out: ctx, w
-    bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * E, "bfloat16" if bank.dtype == torch.bfloat16 else "float32")
+    n_bytes = n_rows * L * E * elt + N * 4 + N * E * elt + 2 * N * L * 4  # in: rows, wt, qe, km, mask
+    if bwd:
+        n_bytes += N * E * elt + N * L * 4 + N * E * elt  # in: g_ctx, g_w; out: d_qe
+    else:
+        n_bytes += N * E * elt + N * L * 4  # out: ctx, w
+    dt = "bfloat16" if bank.dtype == torch.bfloat16 else "float32"
+    bound_ms, bound_by = bound(n_bytes, (6.0 if bwd else 4.0) * N * L * E, dt)
     return bound_ms, bound_by, n_bytes, n_rows
 
 
-def check_bank_kernel(device, gen, dtype):
-    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd, s2pa_bank_fwd_plain
+def check_bank_case(args, g_ctx, g_w, label, smi, bwd=True):
+    """K1 (and K2) against their plain versions on one case, then timed
+    (L2 flushed before each call) beside the byte bound. Returns the
+    case's record."""
+    from dicttts_tpu_torch.ops.s2pa_bank import (_bwd, _fwd, bank_slot_chunks, s2pa_bank_bwd_plain,
+                                                 s2pa_bank_fwd_plain, slot_order)
 
-    V, L, E, N = BANK_V, BANK_L, BANK_E, 1000
-    bank = torch.randn((V, L, E), generator=gen, device=device).to(dtype)
-    wt = torch.randint(0, V, (N,), generator=gen, device=device, dtype=torch.int32)
-    qe = (torch.randn((N, E), generator=gen, device=device) * (3.0 / math.sqrt(E))).to(dtype)
-    km = torch.randint(0, 4, (N, L), generator=gen, device=device, dtype=torch.int32)
-    km[:, 0] = 1
-    km[7] = 0  # an all-masked slot: uniform weights, not NaN
-    mask = (torch.rand((N, L), generator=gen, device=device) > 0.1).float() / 0.9
-    args = (bank, wt, qe, km, mask)
-    ctx, w = s2pa_bank_fwd(*args)
+    bank, wt, qe, km, mask = args
+    dtype, (N, L) = bank.dtype, km.shape
+    slots = slot_order(wt)
+    n_chunks = bank_slot_chunks(slots[0])[0].numel()
+    ctx, w = _fwd(*args, slots)
     torch.cuda.synchronize()
     ctx_p, w_p = s2pa_bank_fwd_plain(*args)
     err_w = (w - w_p).abs().max().item()
@@ -148,21 +243,54 @@ def check_bank_kernel(device, gen, dtype):
     # ulps of its largest value (output and w*mask are rounded to bf16, so a
     # last-bit difference in an f32 sum can flip a rounding)
     tol_c = 2e-5 if dtype == torch.float32 else 2 ** -7 * ctx_p.float().abs().max().item()
-    say(f"K1 s2pa_bank_fwd {dtype}: max|dw|={err_w:.3e} (tol 2e-6) max|dctx|={err_c:.3e} "
-        f"(tol {tol_c:.3e}); all-masked row uniform: {abs(w[7, 0].item() - 1 / L):.1e}")
-    if not (err_w <= 2e-6 and err_c <= tol_c and abs(w[7, 0].item() - 1 / L) < 1e-7):
-        raise AssertionError(f"K1 {dtype} disagrees with its plain version")
+    uniform = abs(w[7, 0].item() - 1 / L)
+    say(f"K1 {label}: max|dw|={err_w:.3e} (tol 2e-6) max|dctx|={err_c:.3e} (tol {tol_c:.3e}); "
+        f"all-masked row uniform: {uniform:.1e}")
+    if not (err_w <= 2e-6 and err_c <= tol_c and uniform < 1e-7):
+        raise AssertionError(f"K1 {label} disagrees with its plain version")
     if not (torch.isfinite(ctx.float()).all() and torch.isfinite(w).all()):
-        raise AssertionError("K1 produced non-finite values")
-    ms = time_ms(lambda: s2pa_bank_fwd(*args))
-    plain_ms = time_ms(lambda: s2pa_bank_fwd_plain(*args))
-    bound_ms, bound_by, n_bytes, n_rows = bank_fwd_bound(args)
-    say(f"K1 {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_rows} distinct rows)")
-    return {"name": "s2pa_bank_fwd", "route": "cuda", "source": "dicttts_tpu_torch/csrc/s2pa_bank_fwd.cu",
-            "replaces": "dicttts_tpu/ops/s2pa_bank_pallas.py:128", "max_abs_err": max(err_w, err_c),
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+        raise AssertionError(f"K1 {label} produced non-finite values")
+    del ctx_p, w_p
+    rec = {"case": label, "dtype": str(dtype).replace("torch.", ""), "N": N,
+           "distinct_rows": torch.unique(wt).numel(), "chunks": n_chunks}
+    k1 = {"max_abs_err": max(err_w, err_c),
+          "ms": time_ms_cold(lambda: _fwd(*args, slots)),
+          "sort_ms": device_ms(lambda: slot_order(wt)),
+          "plain_ms": time_ms_cold(lambda: s2pa_bank_fwd_plain(*args), iters=5)}
+    k1["bound_ms"], k1["bound_by"], n_bytes, _ = bank_bound(args, bwd=False)
+    say(f"K1 {label}: kernel {k1['ms']:.4f} ms (+ slot order {k1['sort_ms']:.4f} ms of device time), plain "
+        f"{k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}; "
+        f"{n_bytes / 1e6:.1f} MB; {rec['distinct_rows']} distinct rows, {n_chunks} chunks of "
+        f"{N} slots), {100 * k1['bound_ms'] / k1['ms']:.1f} % of the bound; on {smi}")
+    rec["k1"] = k1
+    if not bwd:
+        return rec
+    d_qe = _bwd(*args, g_ctx, g_w, slots)
+    torch.cuda.synchronize()
+    ref = s2pa_bank_bwd_plain(*args, g_ctx, g_w).float()
+    err = (d_qe.float() - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    # f32: summation order only; bf16: d_logits and d_qe are rounded to bf16,
+    # so a last-bit difference in an f32 sum can flip a rounding (two ulps)
+    tol = 2e-5 * scale if dtype == torch.float32 else 2 ** -7 * scale
+    masked_row = d_qe[7].float().abs().max().item()
+    say(f"K2 {label}: max|d d_qe|={err:.3e} (tol {tol:.3e}, max|d_qe| {scale:.3e}); "
+        f"all-masked slot max|d_qe| {masked_row:.1e} (must be 0)")
+    if not (err <= tol and masked_row == 0.0 and torch.isfinite(d_qe.float()).all()):
+        raise AssertionError(f"K2 {label} disagrees with its plain version")
+    again = _bwd(*args, g_ctx, g_w, slots)
+    if not torch.equal(again, d_qe) or not torch.equal(_fwd(*args, slots)[0], ctx):
+        raise AssertionError(f"K1/K2 {label}: two launches differ")
+    del ref, again
+    k2 = {"max_abs_err": err,
+          "ms": time_ms_cold(lambda: _bwd(*args, g_ctx, g_w, slots)),
+          "plain_ms": time_ms_cold(lambda: s2pa_bank_bwd_plain(*args, g_ctx, g_w), iters=5)}
+    k2["bound_ms"], k2["bound_by"], n_bytes, _ = bank_bound(args, bwd=True)
+    say(f"K2 {label}: kernel {k2['ms']:.4f} ms, plain {k2['plain_ms']:.4f} ms, bound "
+        f"{k2['bound_ms']:.4f} ms ({k2['bound_by']}; {n_bytes / 1e6:.1f} MB), "
+        f"{100 * k2['bound_ms'] / k2['ms']:.1f} % of the bound; on {smi}")
+    rec["k2"] = k2
+    return rec
 
 
 def check_fused_kernel(device, gen):
@@ -196,57 +324,6 @@ def check_fused_kernel(device, gen):
             "replaces": "dicttts_tpu/ops/s2pa_pallas.py:104", "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
-
-
-def bank_bwd_args(device, gen, dtype, N):
-    """Training-geometry K1/K2 inputs: uniform word ids, one all-masked
-    slot, a dropout keep-scale mask (p = 0.1), random upstream gradients."""
-    V, L, E = BANK_V, BANK_L, BANK_E
-    bank = torch.randn((V, L, E), generator=gen, device=device).to(dtype)
-    wt = torch.randint(0, V, (N,), generator=gen, device=device, dtype=torch.int32)
-    qe = (torch.randn((N, E), generator=gen, device=device) * (3.0 / math.sqrt(E))).to(dtype)
-    km = torch.randint(0, 4, (N, L), generator=gen, device=device, dtype=torch.int32)
-    km[:, 0] = 1
-    km[7] = 0  # an all-masked slot: uniform weights, zero gradient
-    mask = (torch.rand((N, L), generator=gen, device=device) >= 0.1).float() / 0.9
-    g_ctx = torch.randn((N, E), generator=gen, device=device).to(dtype)
-    g_w = torch.randn((N, L), generator=gen, device=device)
-    return (bank, wt, qe, km, mask), g_ctx, g_w
-
-
-def check_bank_bwd_kernel(device, gen, dtype, N):
-    """K2 against its plain version, then timed beside its byte bound."""
-    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_bwd_plain
-
-    args, g_ctx, g_w = bank_bwd_args(device, gen, dtype, N)
-    L, E = BANK_L, BANK_E
-    d_qe = s2pa_bank_bwd(*args, g_ctx, g_w)
-    torch.cuda.synchronize()
-    ref = s2pa_bank_bwd_plain(*args, g_ctx, g_w).float()
-    err = (d_qe.float() - ref).abs().max().item()
-    scale = ref.abs().max().item()
-    # f32: summation order only; bf16: d_logits and d_qe are rounded to bf16,
-    # so a last-bit difference in an f32 sum can flip a rounding (two ulps)
-    tol = 2e-5 * scale if dtype == torch.float32 else 2 ** -7 * scale
-    masked_row = d_qe[7].float().abs().max().item()
-    say(f"K2 s2pa_bank_bwd {dtype}: max|d d_qe|={err:.3e} (tol {tol:.3e}, max|d_qe| {scale:.3e}); "
-        f"all-masked slot max|d_qe| {masked_row:.1e} (must be 0)")
-    if not (err <= tol and masked_row == 0.0 and torch.isfinite(d_qe.float()).all()):
-        raise AssertionError(f"K2 {dtype} disagrees with its plain version")
-    ms = time_ms(lambda: s2pa_bank_bwd(*args, g_ctx, g_w))
-    plain_ms = time_ms(lambda: s2pa_bank_bwd_plain(*args, g_ctx, g_w), iters=5)
-    elt = args[0].element_size()
-    n_rows = torch.unique(args[1]).numel()
-    n_bytes = (n_rows * L * E * elt + N * 4 + 2 * N * E * elt + 3 * N * L * 4  # in: rows, wt, qe, g_ctx, km, mask, g_w
-               + N * E * elt)  # out: d_qe
-    bound_ms, bound_by = bound(n_bytes, 6.0 * N * L * E, "bfloat16" if dtype == torch.bfloat16 else "float32")
-    say(f"K2 {dtype}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_rows} distinct rows of {N} slots)")
-    return args, {"name": "s2pa_bank_bwd", "route": "cuda",
-                  "source": "dicttts_tpu_torch/csrc/s2pa_bank_bwd.cu",
-                  "replaces": "dicttts_tpu/ops/s2pa_bank_pallas.py:163", "max_abs_err": err,
-                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                  "library_ms": None}
 
 
 def check_bank_autograd(args):
@@ -353,8 +430,8 @@ def train_full_width(device, bank, gen_seed, k1_ms, k2_ms, smi):
     say("per-step ms " + " ".join(f"{t:.1f}" for t in times))
     say("losses, first -> last timed step: " + ", ".join(
         f"{k} {v[0]:.4f} -> {v[-1]:.4f}" for k, v in vals.items()))
-    say(f"K1 + K2 (f32, isolated, phase 6): {k1_ms:.4f} + {k2_ms:.4f} ms = "
-        f"{100 * (k1_ms + k2_ms) / med:.2f} % of the median step, on {smi}")
+    say(f"K1 with its slot order + K2 (bf16, corpus-like ids, isolated, phase 6): {k1_ms:.4f} + "
+        f"{k2_ms:.4f} ms = {100 * (k1_ms + k2_ms) / med:.2f} % of the median step, on {smi}")
     say(f"launches in {TRAIN_STEPS} timed steps: K1 {launches[0]}, K2 {launches[1]}, K3 {launches[2]}")
     if launches != (TRAIN_STEPS, TRAIN_STEPS, 0):
         raise AssertionError(f"expected K1 and K2 once per step and no K3, got {launches}")
@@ -486,7 +563,8 @@ def train_step_card_vs_cpu(device, bank):
                             start_frames_d=sd.to(dev))
         out[name] = {k: float(v) for k, v in m.items()}
         say(f"{name}: one step {(time.perf_counter() - t) * 1e3:.1f} ms")
-    rtol = 2e-3  # f32 on both, TF32 off; summation orders differ through the whole model
+    rtol = 2e-3  # TF32 off; the bf16 bank kernels and their plain versions may round a
+    # value differently, and summation orders differ through the whole model
     worst = 0.0
     for k, ref in out["cpu"].items():
         got = out["card"][k]
@@ -536,7 +614,7 @@ def main() -> int:
     from dicttts_tpu_torch.models.dict_tts import DictTTS
     from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
     from dicttts_tpu_torch.ops import cuda_build
-    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd, s2pa_bank_fwd_plain
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd
     from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
     from dicttts_tpu_torch.serve import DictTTSServer
 
@@ -555,15 +633,20 @@ def main() -> int:
     so, log = cuda_build.build()
     cuda_build.library()
     say(f"built {so.name} in {time.time() - t:.1f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("["):
+    say("ptxas -v: each kernel's registers, shared memory and spills")
+    for line in log.splitlines():  # entry names, then their resource lines
+        if any(k in line for k in ("entry function", "registers", "spill", "smem")) or line.startswith("["):
             print("  " + line.strip(), flush=True)
 
     gen = torch.Generator(device=device).manual_seed(SEED)
-    say("phase 2: K1 s2pa_bank_fwd vs plain at V=8000 L=96 E=768 N=1000")
-    k1 = check_bank_kernel(device, gen, torch.bfloat16)
-    check_bank_kernel(device, gen, torch.float32)
-    torch.cuda.empty_cache()
+    say("phase 2: K1 s2pa_bank_fwd vs plain at V=8000 L=96 E=768 N=1000 (serving geometry)")
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args, _, _ = bank_case(device, gen, dtype, 1000)
+        cases.append(check_bank_case(args, None, None, f"serving {str(dtype)[6:]} N=1000 uniform", smi,
+                                     bwd=False))
+        del args
+        torch.cuda.empty_cache()
     say("phase 3: K3 s2pa_fused vs plain at B=16 T=64 L=96 H=192 P=8")
     k3 = check_fused_kernel(device, gen)
 
@@ -598,7 +681,7 @@ def main() -> int:
             f"on {name}")
         if s2pa_bank_fwd.launches != i + 1:
             raise AssertionError(f"K1 launched {s2pa_bank_fwd.launches} times after {i + 1} batches")
-    k1["launches"] = s2pa_bank_fwd.launches
+    k1_serving = s2pa_bank_fwd.launches
     if s2pa_fused.launches != 0:
         raise AssertionError("K3 launched on the device-bank path")
     for i, reqs in enumerate(batches):  # split: the acoustic pass alone, same inputs
@@ -639,37 +722,29 @@ def main() -> int:
     if s2pa_fused.launches != 1 or s2pa_bank_fwd.launches != 0:
         raise AssertionError(f"gathered path launched K3 {s2pa_fused.launches} times")
     k3["launches"] = s2pa_fused.launches
-    k1["launches_by_path"] = {"serving": k1["launches"]}
     del server, bank, acoustic, vocoder, batches, results
     torch.cuda.empty_cache()
     say(f"phases 0-5 done at {time.time() - T_START:.1f} s")
 
     N = TRAIN_B * TRAIN_TW
-    say(f"phase 6: K2 s2pa_bank_bwd vs plain at V=8000 L=96 E=768 N={N} (training geometry)")
-    args_f32, k2 = check_bank_bwd_kernel(device, gen, torch.float32, N)
-    check_bank_autograd(args_f32)
-    k1_train_ms = time_ms(lambda: s2pa_bank_fwd(*args_f32))
-    k1_train_plain_ms = time_ms(lambda: s2pa_bank_fwd_plain(*args_f32), iters=5)
-    k1_train_bound, k1_train_by, k1_bytes, _ = bank_fwd_bound(args_f32)
-    say(f"K1 float32 at the training geometry (N={N}): kernel {k1_train_ms:.4f} ms, plain "
-        f"{k1_train_plain_ms:.4f} ms, bound {k1_train_bound:.4f} ms ({k1_train_by}; "
-        f"{k1_bytes / 1e6:.1f} MB) on {smi}")
-    k1.update(train_f32_ms=k1_train_ms, train_f32_plain_ms=k1_train_plain_ms,
-              train_f32_bound_ms=k1_train_bound)
-    del args_f32
-    torch.cuda.empty_cache()
-    args_bf16, _ = check_bank_bwd_kernel(device, gen, torch.bfloat16, N)
-    del args_bf16
-    torch.cuda.empty_cache()
+    say(f"phase 6: K1 and K2 vs plain at V=8000 L=96 E=768 N={N} (training geometry), "
+        f"bf16 and f32, corpus-like, uniform and Zipf word ids")
+    for dtype in (torch.bfloat16, torch.float32):
+        for ids in ("corpus", "uniform", "zipf"):
+            args, g_ctx, g_w = bank_case(device, gen, dtype, N, ids)
+            cases.append(check_bank_case(args, g_ctx, g_w, f"training {str(dtype)[6:]} N={N} {ids}", smi))
+            if dtype == torch.float32 and ids == "corpus":
+                check_bank_autograd(args)
+            del args, g_ctx, g_w
+            torch.cuda.empty_cache()
+    main_case = next(c for c in cases if c["case"] == f"training bfloat16 N={N} corpus")
     say(f"phase 6 done at {time.time() - T_START:.1f} s")
 
-    say(f"phase 7: training at production width, B={TRAIN_B} Tw={TRAIN_TW} T={TRAIN_T}, f32 bank")
-    train_bank = make_bank(device, gen, torch.float32)
-    _, k1_train, k2_train = train_full_width(device, train_bank, SEED, k1_train_ms, k2["ms"], smi)
-    k1["launches_by_path"]["training"] = k1_train
-    k1["launches"] += k1_train
-    k2["launches"] = k2_train
-    k2["launches_by_path"] = {"training": k2_train}
+    say(f"phase 7: training at production width, B={TRAIN_B} Tw={TRAIN_TW} T={TRAIN_T}, bf16 bank")
+    train_bank = make_bank(device, gen, torch.bfloat16)  # the recipe's device_bank() dtype
+    _, k1_train, k2_train = train_full_width(device, train_bank, SEED,
+                                             main_case["k1"]["ms"] + main_case["k1"]["sort_ms"],
+                                             main_case["k2"]["ms"], smi)
     say(f"phase 7 done at {time.time() - T_START:.1f} s")
 
     say("phase 7b: Trainer.fit, checkpoint, resume")
@@ -680,7 +755,24 @@ def main() -> int:
     train_step_card_vs_cpu(device, train_bank)
     say(f"phase 7c done at {time.time() - T_START:.1f} s")
 
-    print(json.dumps({"kernels": [k1, k2, k3]}), flush=True)
+    kernels = []
+    for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),
+                                  ("k2", "s2pa_bank_bwd", "s2pa_bank_bwd.cu", 163)):
+        launches = ({"serving": k1_serving, "training": k1_train} if key == "k1"
+                    else {"training": k2_train})
+        by_case = [{"case": c["case"], "distinct_rows": c["distinct_rows"], "chunks": c["chunks"],
+                    **{k: v for k, v in c[key].items() if k != "bound_by"}} for c in cases if key in c]
+        main_ = main_case[key]  # the training path: the recipe's bf16 bank, corpus-like ids
+        kernels.append({"name": name_, "route": "cuda", "source": f"dicttts_tpu_torch/csrc/{src}",
+                        "replaces": f"dicttts_tpu/ops/s2pa_bank_pallas.py:{line}",
+                        "launches": sum(launches.values()), "launches_by_path": launches,
+                        "max_abs_err": max(c["max_abs_err"] for c in by_case),
+                        "ms": main_["ms"], "plain_ms": main_["plain_ms"], "bound_ms": main_["bound_ms"],
+                        "bound_by": main_["bound_by"], "library_ms": None,
+                        # K1's slot order (one torch.sort, shared with K2) is timed apart
+                        **({"sort_ms": main_["sort_ms"]} if "sort_ms" in main_ else {}),
+                        "main_case": main_case["case"], "cases": by_case})
+    print(json.dumps({"kernels": [*kernels, k3]}), flush=True)
     print(f"chip_smoke total {time.time() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

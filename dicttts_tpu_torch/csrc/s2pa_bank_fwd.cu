@@ -1,26 +1,50 @@
 // S2PA attention over the device-resident dict bank, forward (K1).
 //
 // Replaces the Pallas TPU kernel `s2pa_bank_attend` forward
-// (dicttts_tpu/ops/s2pa_bank_pallas.py, `_fwd_call` -> `_fwd_kernel`).
+// (dicttts_tpu/ops/s2pa_bank_pallas.py:128, `_fwd_call` -> `_fwd_kernel`).
 // For each word slot n (N = B * Tw):
 //   row      = bank[wt[n]]                         [L, E], gathered here
 //   logits_l = row[l, :] . qe[n, :]                f32 accumulation
 //   logits_l = -1e9 where km[n, l] == 0            finite mask: an all-masked
 //                                                  row gives uniform weights
 //   w        = softmax(logits)                     f32, written out (pre-dropout)
-//   wd       = bank_type(w * mask[n])              rounded like the TPU kernel
+//   wd       = bank_type(w * mask[n])              rounded like the TPU kernel,
+//                                                  after normalising
 //   ctx[n]   = sum_l wd[l] * row[l, :]             f32 accumulation, stored
 //                                                  in the bank type
 //
-// What bounds it on the H100: bytes. At serving geometry (L=96, E=768,
-// bf16) each slot reads a 147 KB bank row and does 4*L*E flops on it, far
-// below the card's ~295 flops per byte, so the floor is the row traffic
-// over 3.35 TB/s. The design reads each row once from device memory: one
-// block per slot gathers its own row (the word id is loaded by the block,
-// no prefetch), phase 1 streams it with 16-byte loads (one warp per gloss
-// token, lanes along E), and phase 3 re-reads the same 147 KB from L2,
-// which holds it, instead of device memory. The [B, Tw, L, E] gathered copy
-// that the plain version builds is never materialised.
+// What bounds it on the H100: bytes. Each distinct word id's row is 147 KB
+// in bf16 (295 KB in f32) at L=96, E=768, and is used for 4*L*E flops per
+// slot, far below the card's ~295 flops per byte, so the floor is the
+// distinct rows over 3.35 TB/s.
+//
+// The design reads each distinct row from device memory once and serves
+// every slot that uses it from shared memory (s2pa_common.cuh has the
+// pieces): slots are grouped by word id through the stable sort of the ids
+// that the wrapper passes (`ids`, `order`); one cluster of C CTAs owns a chunk of up to
+// kSegMax slots with one id; each CTA bulk-copies its contiguous slice of
+// Lc = ceil(L / C) gloss tokens into shared memory (C = 4 in bf16 and 8 in
+// f32 at the production shape: ~40 KB and 128 threads a CTA, so 4-5 CTAs
+// share an SM and one CTA's copies and cluster syncs overlap the others'
+// arithmetic). Per slot, all from shared memory:
+//   1. logits of the slice's tokens, each warp taking every fourth token
+//      with the query in its lanes' registers (token_dots); lane j of a
+//      warp keeps its j-th token's logit;
+//   2. the softmax statistics: each warp's max m_w and s_w = sum exp(x - m_w)
+//      by warp reductions, published (one float4 a warp) and combined
+//      across the cluster through distributed shared memory into
+//      m = max m_w, s = sum s_w exp(m_w - m), the same bits in every CTA;
+//   3. w = exp(x - m) / s written, wd rounded to the bank type after the
+//      normalisation (a running rescaled sum, as flash attention keeps,
+//      could not round there), kept for the slice's tokens;
+//   4. the slice's partial ctx [E], each group of columns stored into the
+//      shared memory of the CTA that owns it;
+//   5. after a cluster sync, CTA r sums what it received for columns
+//      [r E/C, (r+1) E/C) in rank order and stores them. No atomics:
+//      results are bitwise repeatable; no CTA reads another's shared memory
+//      after that sync, so none waits for the others before it exits.
+// The [B, Tw, L, E] gathered copy that the plain version builds is never
+// materialised.
 
 #include <math.h>
 
@@ -29,105 +53,186 @@
 namespace {
 
 using namespace s2pa;
+namespace cg = cooperative_groups;
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// One block per word slot. Shared memory: qe row [E] f32, then [L] f32
-// logits that become the rounded weights.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-s2pa_bank_fwd_kernel(const T* __restrict__ bank, const int32_t* __restrict__ wt,
-                     const T* __restrict__ qe, const int32_t* __restrict__ km,
-                     const float* __restrict__ mask, T* __restrict__ ctx,
-                     float* __restrict__ w, int L, int E) {
-  extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* p_s = q_s + E;
-  const int n = blockIdx.x;
+template <typename T, int NIT>
+__global__ void __launch_bounds__(kBankThreads, 5)
+s2pa_bank_fwd_kernel(const T* __restrict__ bank, const int32_t* __restrict__ ids,
+                     const int64_t* __restrict__ order, const T* __restrict__ qe,
+                     const int32_t* __restrict__ km, const float* __restrict__ mask,
+                     T* __restrict__ ctx, float* __restrict__ w, int N, int L, int E) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const T* row = bank + static_cast<size_t>(wt[n]) * L * E;
-  const T* q_n = qe + static_cast<size_t>(n) * E;
-  const size_t nl = static_cast<size_t>(n) * L;
 
-  for (int e = threadIdx.x; e < E; e += kThreads) q_s[e] = to_float(q_n[e]);
+  int id, count;
+  long long slot_of_lane;
+  if (!owned_chunk(ids, order, N, static_cast<int>(blockIdx.x) / C, &id, &count, &slot_of_lane)) return;
+  S2PA_MARK_START(count);
+
+  const BankPlan plan = bank_plan(L, E, C, sizeof(T));
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* row_s = reinterpret_cast<T*>(smem);
+  float* recv = reinterpret_cast<float*>(smem + plan.recv);
+  float* partial = reinterpret_cast<float*>(smem + plan.partial);
+  float* wd_s = reinterpret_cast<float*>(smem + plan.tok);  // rounded w * mask of the slice
+  float* wst = reinterpret_cast<float*>(smem + plan.wst);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + plan.bars);
+
+  const int l0 = rank * plan.Lc;
+  const int nl = max(0, min(plan.Lc, L - l0));
+  const int tc = (nl + kChunks - 1) / kChunks;
+  const int nchunks = nl > 0 ? (nl + tc - 1) / tc : 0;
+  if (threadIdx.x == 0)
+    start_row_slice(row_s, bank + (static_cast<size_t>(id) * L + l0) * E, nl, tc, E, bars);
   __syncthreads();
+  S2PA_MARK(0, 1);
+  int ready = 0;  // chunks of the slice this thread has waited for
+  // the warp's tokens are l = warp + kBankWarps * j; lane j keeps token j's values
+  const int nj = nl > warp ? (nl - warp + kBankWarps - 1) / kBankWarps : 0;
+  const int my_l = warp + kBankWarps * lane;
 
-  // phase 1: logits, one warp per gloss token, lanes along E
-  constexpr int V = Vec16<T>::n;
-  for (int l = warp; l < L; l += kWarps) {
-    const T* r = row + static_cast<size_t>(l) * E;
-    float acc = 0.f;
-    for (int e = lane * V; e < E; e += 32 * V) {
-      float x[V];
-      Vec16<T>::load(r + e, x);
-#pragma unroll
-      for (int i = 0; i < V; i += 4) {
-        const float4 q4 = *reinterpret_cast<const float4*>(q_s + e + i);
-        acc = fmaf(x[i], q4.x, acc);
-        acc = fmaf(x[i + 1], q4.y, acc);
-        acc = fmaf(x[i + 2], q4.z, acc);
-        acc = fmaf(x[i + 3], q4.w, acc);
-      }
+  for (int k = 0; k < count; ++k) {
+    const long long n = __shfl_sync(0xffffffffu, slot_of_lane, k + 1);
+    const size_t nL = static_cast<size_t>(n) * L + l0;
+    int my_km = 0;
+    float my_mk = 0.f, my_x = -INFINITY;
+    if (lane < nj) {
+      my_km = km[nL + my_l];
+      my_mk = mask[nL + my_l];
     }
-    acc = warp_sum(acc);
-    if (lane == 0) p_s[l] = km[nl + l] != 0 ? acc : kMaskValue;
-  }
-  __syncthreads();
+    LaneRow<T, NIT> q[1];
+    q[0].load(qe + static_cast<size_t>(n) * E, E, lane);
 
-  // phase 2: f32 softmax over L (one warp), write w, keep the rounded w*mask
-  if (warp == 0) {
-    float m = -INFINITY;
-    for (int l = lane; l < L; l += 32) m = fmaxf(m, p_s[l]);
-    m = warp_max(m);
-    float s = 0.f;
-    for (int l = lane; l < L; l += 32) {
-      const float ex = expf(p_s[l] - m);
-      p_s[l] = ex;
-      s += ex;
-    }
-    s = warp_sum(s);
-    for (int l = lane; l < L; l += 32) {
-      const float wl = p_s[l] / s;
-      w[nl + l] = wl;
-      p_s[l] = to_float(from_float<T>(wl * mask[nl + l]));
-    }
-  }
-  __syncthreads();
+    // 1. logits of the warp's tokens, from the slice in shared memory
+    float dot[1];
+    token_dots(row_s, q, E, nj, warp, lane, tc, bars, ready, dot);
+    if (lane < nj) my_x = my_km != 0 ? dot[0] : kMaskValue;
+    S2PA_MARK(k, 2);
+    // 2. the warp's softmax statistics, then the cluster's
+    const float m_w = warp_max(my_x);
+    const float s_w = warp_sum(lane < nj ? expf(my_x - m_w) : 0.f);
+    if (lane == 0) *reinterpret_cast<float4*>(wst + 4 * warp) = make_float4(m_w, s_w, 0.f, 0.f);
+    S2PA_MARK(k, 3);
+    cluster.sync();
+    S2PA_MARK(k, 4);
+    const float3 st = combine_stats(cluster, wst, C, lane);
+    S2PA_MARK(k, 5);
 
-  // phase 3: context, each thread owns columns e and sums over l (L2 re-read)
-  T* out = ctx + static_cast<size_t>(n) * E;
-  for (int e = threadIdx.x; e < E; e += kThreads) {
-    float acc = 0.f;
-    for (int l = 0; l < L; ++l) acc = fmaf(p_s[l], to_float(row[static_cast<size_t>(l) * E + e]), acc);
-    out[e] = from_float<T>(acc);
+    // 3. weights out, w * mask rounded to the bank type after normalising
+    if (lane < nj) {
+      const float wl = expf(my_x - st.x) / st.y;
+      w[nL + my_l] = wl;
+      wd_s[my_l] = to_float(from_float<T>(wl * my_mk));
+    }
+    if (k == 0)
+      while (ready < nchunks) mbar_wait(bars + ready++, 0);
+    __syncthreads();
+    S2PA_MARK(k, 6);
+
+    // 4-5. the slice's partial context, summed across the cluster
+    push_columns(cluster, row_s, wd_s, nl, E, plan, rank, recv, partial);
+    S2PA_MARK(k, 7);
+    cluster.sync();
+    S2PA_MARK(k, 8);
+    reduce_columns(recv, E, C, plan.Ec, rank, ctx + static_cast<size_t>(n) * E);
+    S2PA_MARK(k, 9);
   }
+  S2PA_MARK_END(10);
+}
+
+// The kernel instantiated for NIT = ceil(E / (32 V)) vector steps a lane.
+template <typename T, int NIT = 1>
+int launch_fwd(int nit, int n, int C, size_t smem, cudaStream_t s, const void* bank, const void* ids,
+               const void* order, const void* qe, const void* km, const void* mask, void* ctx, void* w,
+               int L, int E) {
+  if constexpr (NIT < kMaxNit<T>) {
+    if (nit > NIT) return launch_fwd<T, NIT + 1>(nit, n, C, smem, s, bank, ids, order, qe, km, mask, ctx, w, L, E);
+  }
+  return launch_clusters(s2pa_bank_fwd_kernel<T, NIT>, n, C, smem, s, static_cast<const T*>(bank),
+                         static_cast<const int32_t*>(ids), static_cast<const int64_t*>(order),
+                         static_cast<const T*>(qe), static_cast<const int32_t*>(km),
+                         static_cast<const float*>(mask), static_cast<T*>(ctx), static_cast<float*>(w), n,
+                         L, E);
 }
 
 }  // namespace
 
 // Plain C entry point. Pointers are device pointers of contiguous tensors:
-// bank [V, L, E], wt [N] int32, qe [N, E] (bank dtype), km [N, L] int32,
-// mask [N, L] f32 -> ctx [N, E] (bank dtype), w [N, L] f32. E must be a
-// multiple of 8. Returns the cudaError_t of the launch.
-extern "C" int s2pa_bank_fwd(const void* bank, const void* wt, const void* qe, const void* km,
-                             const void* mask, void* ctx, void* w, int n, int L, int E,
-                             int is_bf16, void* stream) {
+// bank [V, L, E] (16-byte aligned), ids [N] int32 and order [N] int64 (the
+// word ids sorted stably and their slots), qe [N, E] (bank dtype), km [N, L]
+// int32, mask [N, L] f32 -> ctx [N, E] (bank dtype), w [N, L] f32. The
+// cluster size and shared memory come from choose_plan; a shape it refuses
+// returns cudaErrorInvalidValue. Returns the cudaError_t of the launch.
+extern "C" int s2pa_bank_fwd(const void* bank, const void* ids, const void* order, const void* qe,
+                             const void* km, const void* mask, void* ctx, void* w, int n, int L,
+                             int E, int is_bf16, void* stream) {
   if (n == 0) return 0;
-  const size_t smem = static_cast<size_t>(E + L) * sizeof(float);
+  int C;
+  size_t smem;
+  if (!s2pa::choose_plan(L, E, is_bf16 ? 2 : 4, &C, &smem)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    s2pa_bank_fwd_kernel<__nv_bfloat16><<<n, kThreads, smem, s>>>(
-        static_cast<const __nv_bfloat16*>(bank), static_cast<const int32_t*>(wt),
-        static_cast<const __nv_bfloat16*>(qe), static_cast<const int32_t*>(km),
-        static_cast<const float*>(mask), static_cast<__nv_bfloat16*>(ctx),
-        static_cast<float*>(w), L, E);
-  } else {
-    s2pa_bank_fwd_kernel<float><<<n, kThreads, smem, s>>>(
-        static_cast<const float*>(bank), static_cast<const int32_t*>(wt),
-        static_cast<const float*>(qe), static_cast<const int32_t*>(km),
-        static_cast<const float*>(mask), static_cast<float*>(ctx), static_cast<float*>(w), L, E);
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (is_bf16)
+    return launch_fwd<__nv_bfloat16>((E + 255) / 256, n, C, smem, s, bank, ids, order, qe, km, mask, ctx, w, L, E);
+  return launch_fwd<float>((E + 127) / 128, n, C, smem, s, bank, ids, order, qe, km, mask, ctx, w, L, E);
 }
+
+// Host-side views of the bank kernels' plan and grouping, for the wrapper's
+// checks and for tests. s2pa_bank_plan: the cluster size C and one CTA's
+// shared memory in bytes for an [*, L, E] bank (is_bf16: 2-byte elements);
+// returns 1 if the kernels take the shape, else 0. s2pa_bank_chunks: for
+// word ids sorted stably (host memory, n of them), counts[i] = the number of
+// slots in the chunk that starts at sorted position i, 0 where none starts.
+extern "C" int s2pa_bank_plan(int L, int E, int is_bf16, int* C, long long* smem) {
+  size_t bytes;
+  const bool ok = s2pa::choose_plan(L, E, is_bf16 ? 2 : 4, C, &bytes);
+  *smem = static_cast<long long>(bytes);
+  return ok ? 1 : 0;
+}
+
+extern "C" void s2pa_bank_chunks(const int32_t* ids, int n, int32_t* counts) {
+  int start = 0;
+  for (int i = 0; i < n; ++i) {
+    counts[i] = 0;
+    if (s2pa::starts_chunk(i, ids[i], i > 0 ? ids[i - 1] : ids[i])) start = i;
+    ++counts[start];
+  }
+}
+
+#ifdef S2PA_PROFILE
+// Profiling builds only: read and clear the marks; how many clusters of C
+// CTAs with `smem` bytes each the card holds at once (the kernel at
+// E = 768).
+extern "C" int s2pa_prof_copy(void* dst, size_t bytes) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, s2pa::g_prof, bytes));
+}
+extern "C" int s2pa_prof_clear() {
+  void* p;
+  cudaGetSymbolAddress(&p, s2pa::g_prof);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(s2pa::g_prof)));
+}
+extern "C" int s2pa_prof_max_clusters(int C, int smem, int is_bf16) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(4096 * C);
+  cfg.blockDim = dim3(s2pa::kBankThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  if (is_bf16) {
+    cudaFuncSetAttribute(s2pa_bank_fwd_kernel<__nv_bfloat16, 3>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveClusters(&n, s2pa_bank_fwd_kernel<__nv_bfloat16, 3>, &cfg);
+  } else {
+    cudaFuncSetAttribute(s2pa_bank_fwd_kernel<float, 6>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaOccupancyMaxActiveClusters(&n, s2pa_bank_fwd_kernel<float, 6>, &cfg);
+  }
+  return n;
+}
+#endif

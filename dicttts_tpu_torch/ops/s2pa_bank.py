@@ -7,12 +7,18 @@ Replaces the Pallas TPU kernel ``s2pa_bank_attend``
 and its backward ``_bwd_call`` / ``_bwd_kernel`` (wired by ``_attend_bwd``)
 with ``csrc/s2pa_bank_bwd.cu``.
 
-What bounds both on the H100 is bytes: each word slot reads one bank row
-(147 KB in bf16, 295 KB in f32 at L=96, E=768) for 4*L*E (forward) or
-6*L*E (backward) flops. Each kernel gathers its rows itself (one block per
-slot) and reads each once from device memory, so the ``[B, Tw, L, E]``
-gathered copy that the plain versions build is never written; see the
-sources for the block layout.
+What bounds both on the H100 is bytes: each distinct word id's bank row
+(147 KB in bf16, 295 KB in f32 at L=96, E=768) is used for 4*L*E (forward)
+or 6*L*E (backward) flops per slot. Both kernels group the slots by word id
+(``slot_order``, a stable sort that the forward computes and the
+autograd function saves for the backward), and one cluster of C CTAs
+holds a row in shared memory, split over its CTAs, while it serves every
+slot of a chunk of up to 4 slots with that id: each distinct row is read
+from device memory once, and the ``[B, Tw, L, E]`` gathered copy that the
+plain versions build is never written. The sources
+(``csrc/s2pa_common.cuh``) hold the layout and the grouping rule;
+``bank_kernel_plan`` (cluster size and shared memory) and
+``bank_slot_chunks`` (the chunks of slots) ask the built library for them.
 
 ``s2pa_bank_fwd`` and ``s2pa_bank_bwd`` take the plain version for CPU
 tensors and launch the kernel for CUDA tensors; they never fall back from
@@ -21,12 +27,69 @@ one to the other.
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
 from dicttts_tpu_torch.ops import cuda_build
 
 MASK_VALUE = -1e9
 _BANK_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def bank_tensor(x, device) -> torch.Tensor:
+    """A bank array as a contiguous tensor on ``device``, in the dtype it
+    arrives in: a tensor, or a numpy array of any dtype, including the
+    bfloat16 of the ``ml_dtypes`` package (which the JAX package's
+    ``device_bank`` returns and ``torch.as_tensor`` refuses); that one is
+    reinterpreted bit for bit, without importing ``ml_dtypes``."""
+    if not isinstance(x, torch.Tensor):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16" and a.dtype.itemsize == 2:
+            x = torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+        else:
+            x = torch.as_tensor(a)
+    return x.to(device).contiguous()
+
+
+def slot_order(wt: torch.Tensor):
+    """(ids [N] int32, order [N] int64): the word ids sorted stably and the
+    slot each came from, so the kernels find the slots that share a bank row
+    side by side. One sort on wt's device (no host sync)."""
+    return torch.sort(wt, stable=True)
+
+
+def bank_slot_chunks(ids: torch.Tensor):
+    """The kernels' chunks of slots for ``ids, order = slot_order(wt)``:
+    (starts, counts), int64 [n_chunks]; chunk c is the slots
+    ``order[starts[c]:starts[c] + counts[c]]``, all with one word id, and one
+    cluster serves it from one load of that id's bank row. Computed on the
+    host by the kernel library's own rule (``starts_chunk`` in
+    ``csrc/s2pa_common.cuh``, exported as ``s2pa_bank_chunks``), so it needs
+    the built library (nvcc); for reports and tests, not the kernels' path."""
+    ids_h = np.ascontiguousarray(ids.detach().cpu().numpy().astype(np.int32))
+    counts = np.zeros_like(ids_h)
+    cuda_build.library().s2pa_bank_chunks(ids_h.ctypes.data, ids_h.size, counts.ctypes.data)
+    starts = np.flatnonzero(counts)
+    return torch.from_numpy(starts), torch.from_numpy(counts[starts].astype(np.int64))
+
+
+def bank_kernel_plan(L: int, E: int, dtype: torch.dtype) -> tuple[int, int]:
+    """(C, shared memory bytes per CTA) of K1 and K2 for an [*, L, E] bank,
+    from the kernel library (``choose_plan`` in ``csrc/s2pa_common.cuh``,
+    exported as ``s2pa_bank_plan``): C = 4 CTAs per cluster in bf16 and 8 in
+    f32, doubled up to 8 while a CTA would hold more than 128 gloss tokens or
+    227 KB. Raises ValueError for a shape the kernels do not take."""
+    C, smem = ctypes.c_int(), ctypes.c_longlong()
+    ok = cuda_build.library().s2pa_bank_plan(L, E, int(dtype == torch.bfloat16), ctypes.byref(C),
+                                             ctypes.byref(smem))
+    if not ok:
+        raise ValueError(f"the bank kernels do not take L={L}, E={E} in {dtype}: E must be a multiple "
+                         f"of 8 and at most 1024, and a CTA of a cluster of at most 8 must hold at most "
+                         f"128 gloss tokens in 227 KB of shared memory (got {smem.value} bytes at "
+                         f"C={C.value})")
+    return C.value, smem.value
 
 
 def s2pa_bank_fwd_plain(bank, wt, qe, km, mask):
@@ -77,13 +140,19 @@ def _check(bank, wt, qe, km, mask):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
-def _check_cuda(name, L, E, smem_floats, tensors):
-    if E % 8:
-        raise ValueError(f"the CUDA kernel needs E % 8 == 0 (16-byte loads), got E={E}")
-    if smem_floats * 4 > 48 * 1024:
-        raise ValueError(f"L={L}, E={E} exceed the {name} kernel's 48 KB shared memory")
+def _check_cuda(name, bank, wt, ids, order, tensors):
+    """Raises for inputs the kernel does not take (see bank_kernel_plan)."""
+    _, L, E = bank.shape
+    bank_kernel_plan(L, E, bank.dtype)
+    for t, dtype in ((ids, torch.int32), (order, torch.int64)):
+        if t.shape != wt.shape or t.dtype != dtype or t.device != wt.device:
+            raise ValueError(f"slots must be slot_order(wt): [{wt.shape[0]}] int32 and int64 on "
+                             f"{wt.device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+    tensors = (*tensors, ids, order)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name} needs 16-byte aligned tensors")
 
 
 def s2pa_bank_fwd(bank, wt, qe, km, mask):
@@ -95,6 +164,14 @@ def s2pa_bank_fwd(bank, wt, qe, km, mask):
     mask: [N, L] f32 keep-scale on the weights (ones at serving).
     Returns (ctx_e [N, E] in qe's dtype, w [N, L] f32 pre-mask weights).
     """
+    return _fwd(bank, wt, qe, km, mask, None)
+
+
+def _fwd(bank, wt, qe, km, mask, slots):
+    """s2pa_bank_fwd; on the card with ``slots = slot_order(wt)`` if given
+    (the autograd function, which saves them for K2, and chip_smoke's
+    timing of the kernel alone), else computed here. The kernel reads the
+    rows of ``slots``, never ``wt``: they must come from this wt."""
     _check(bank, wt, qe, km, mask)
     device = bank.device
     if device.type == "cpu":
@@ -103,15 +180,16 @@ def s2pa_bank_fwd(bank, wt, qe, km, mask):
         raise ValueError(f"s2pa_bank_fwd runs on cpu or cuda, not {device}")
     _, L, E = bank.shape
     N = wt.shape[0]
-    _check_cuda("s2pa_bank_fwd", L, E, E + L, (bank, wt, qe, km, mask))
+    ids, order = slot_order(wt) if slots is None else slots
+    _check_cuda("s2pa_bank_fwd", bank, wt, ids, order, (bank, wt, qe, km, mask))
     ctx = torch.empty_like(qe)
     w = torch.empty((N, L), dtype=torch.float32, device=device)
     if N:
         with torch.cuda.device(device):
             rc = cuda_build.library().s2pa_bank_fwd(
-                bank.data_ptr(), wt.data_ptr(), qe.data_ptr(), km.data_ptr(), mask.data_ptr(),
-                ctx.data_ptr(), w.data_ptr(), N, L, E, int(bank.dtype == torch.bfloat16),
-                torch.cuda.current_stream(device).cuda_stream,
+                bank.data_ptr(), ids.data_ptr(), order.data_ptr(), qe.data_ptr(), km.data_ptr(),
+                mask.data_ptr(), ctx.data_ptr(), w.data_ptr(), N, L, E,
+                int(bank.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
             )
         cuda_build.check_launch("s2pa_bank_fwd", rc)
         s2pa_bank_fwd.launches += 1
@@ -126,6 +204,11 @@ def s2pa_bank_bwd(bank, wt, qe, km, mask, g_ctx, g_w):
     (ctx_e, w) with respect to qe. Same inputs as the forward, plus
     g_ctx [N, E] in qe's dtype and g_w [N, L] f32. Returns d_qe [N, E] in
     qe's dtype; the bank gets no gradient (it is constant in training)."""
+    return _bwd(bank, wt, qe, km, mask, g_ctx, g_w, None)
+
+
+def _bwd(bank, wt, qe, km, mask, g_ctx, g_w, slots):
+    """s2pa_bank_bwd; ``slots`` as in ``_fwd``."""
     _check(bank, wt, qe, km, mask)
     N, E = qe.shape
     if g_ctx.shape != (N, E) or g_ctx.dtype != qe.dtype:
@@ -140,13 +223,14 @@ def s2pa_bank_bwd(bank, wt, qe, km, mask, g_ctx, g_w):
     if device.type != "cuda":
         raise ValueError(f"s2pa_bank_bwd runs on cpu or cuda, not {device}")
     L = bank.shape[1]
-    _check_cuda("s2pa_bank_bwd", L, E, 2 * (E + L), (bank, wt, qe, km, mask, g_ctx, g_w))
+    ids, order = slot_order(wt) if slots is None else slots
+    _check_cuda("s2pa_bank_bwd", bank, wt, ids, order, (bank, wt, qe, km, mask, g_ctx, g_w))
     d_qe = torch.empty_like(qe)
     if N:
         with torch.cuda.device(device):
             rc = cuda_build.library().s2pa_bank_bwd(
-                bank.data_ptr(), wt.data_ptr(), qe.data_ptr(), km.data_ptr(), mask.data_ptr(),
-                g_ctx.data_ptr(), g_w.data_ptr(), d_qe.data_ptr(), N, L, E,
+                bank.data_ptr(), ids.data_ptr(), order.data_ptr(), qe.data_ptr(), km.data_ptr(),
+                mask.data_ptr(), g_ctx.data_ptr(), g_w.data_ptr(), d_qe.data_ptr(), N, L, E,
                 int(bank.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
             )
         cuda_build.check_launch("s2pa_bank_bwd", rc)
@@ -159,19 +243,22 @@ s2pa_bank_bwd.launches = 0
 
 class S2PABankAttend(torch.autograd.Function):
     """(ctx_e, w) = s2pa_bank_fwd(bank, wt, qe, km, mask) with K2 as its
-    backward. Saves the five inputs, never a gathered [N, L, E] copy; only
-    qe gets a gradient (the bank is constant, the mask is a fixed
-    keep-scale, wt and km are integers)."""
+    backward. Saves the five inputs and, on the card, the slot order the
+    forward computed (``slot_order``), never a gathered [N, L, E] copy; only qe gets a
+    gradient (the bank is constant, the mask is a fixed keep-scale, wt and
+    km are integers)."""
 
     @staticmethod
     def forward(ctx, bank, wt, qe, km, mask):
-        ctx.save_for_backward(bank, wt, qe, km, mask)
-        return s2pa_bank_fwd(bank, wt, qe, km, mask)
+        ids, order = slot_order(wt) if bank.device.type == "cuda" else (None, None)
+        ctx.save_for_backward(bank, wt, qe, km, mask, ids, order)
+        return _fwd(bank, wt, qe, km, mask, None if ids is None else (ids, order))
 
     @staticmethod
     def backward(ctx, g_ctx, g_w):
-        bank, wt, qe, km, mask = ctx.saved_tensors
-        d_qe = s2pa_bank_bwd(bank, wt, qe, km, mask, g_ctx.contiguous(), g_w.contiguous())
+        bank, wt, qe, km, mask, ids, order = ctx.saved_tensors
+        d_qe = _bwd(bank, wt, qe, km, mask, g_ctx.contiguous(), g_w.contiguous(),
+                    None if ids is None else (ids, order))
         return None, None, d_qe, None, None
 
 

@@ -31,6 +31,7 @@ import torch
 from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
+from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.ops.seq import shape_bucket
 from dicttts_tpu_torch.vocoders.hifigan import MEL_SILENCE, spec2wav
 
@@ -80,13 +81,12 @@ class DictTTSServer:
         self.device = resolve_device(device)
         self.acoustic = acoustic.to(self.device).eval()
         self.vocoder = vocoder.to(self.device).eval()
-        self.bank = None if bank is None else {
-            k: torch.as_tensor(bank[k]).to(self.device).contiguous() for k in BANK_KEYS}
+        self.bank = None if bank is None else {k: bank_tensor(bank[k], self.device) for k in BANK_KEYS}
         self.max_frames = max_frames
         self.hop = math.prod(up.stride[0] for up in self.vocoder.ups)
 
     def _tensor(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device)
+        return bank_tensor(x, self.device)
 
     def collate(self, requests: list[Request]):
         """Pad requests to shared bucketed shapes -> (word_tokens [B, Tw],

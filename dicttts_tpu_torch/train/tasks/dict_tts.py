@@ -7,9 +7,11 @@ lambda_mel_adv; the discriminator trains on the same step's detached
 output (``adv_base.py``).
 
 As the recipe sets it (``use_device_dict_bank``, ``s2pa_bank_fused``),
-the task holds the ``[V, L, E]`` f32 bank and its maps on the card,
+the task holds the ``[V, L, E]`` bank and its maps on the card in the dtype
+they arrive in (the recipe's bank is bf16: ``device_bank()`` with no dtype),
 batches carry word ids only, and S2PA runs the gather-fused kernels over
-the un-gathered bank: K1 forward, K2 backward. Batches that carry
+the un-gathered bank: K1 forward, K2 backward, in the bank's dtype, with
+the query cast to it as the JAX fused branch casts it. Batches that carry
 gathered banks are not ported.
 
 Batch keys (the collater's): word_tokens [B, Tw], pron_modified [B, Tw],
@@ -23,6 +25,7 @@ import torch
 
 from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
+from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.serve import BANK_KEYS, pinyin_decode, resolve_device
 from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.train.tasks.adv_base import AdversarialTTSTask
@@ -66,8 +69,9 @@ _REQUIRED = {"use_prior_glow": True, "use_spk_id": False, "accumulate_grad_batch
 class DictTTSTask(AdversarialTTSTask):
     """cfg: overrides of ``DEFAULTS`` (plus ``disc_dropout``); bank: the
     device bank {'keys' [V, L, E], 'key_map' [V, L], 'pinyin' [V, P],
-    'pinyin_map' [V, P]} (numpy arrays or tensors), held on ``device`` with
-    the keys in f32."""
+    'pinyin_map' [V, P]} (numpy arrays, bf16 ones included, or tensors),
+    held on ``device`` in the dtypes it arrives in: the keys bf16 as the
+    recipe trains, or f32."""
 
     def __init__(self, cfg: dict | None = None, bank: dict | None = None, device="cuda"):
         self.cfg = {**DEFAULTS, "disc_dropout": DISC_DROPOUT, **(cfg or {})}
@@ -79,8 +83,7 @@ class DictTTSTask(AdversarialTTSTask):
         self.mel_loss_spec = L.parse_mel_loss_spec(self.cfg["mel_loss"])
         self.bank = None
         if bank is not None:
-            self.bank = {k: torch.as_tensor(bank[k]).to(self.device).contiguous() for k in BANK_KEYS}
-            self.bank["keys"] = self.bank["keys"].float()
+            self.bank = {k: bank_tensor(bank[k], self.device) for k in BANK_KEYS}
 
     def build_model(self) -> DictTTS:
         c = self.cfg

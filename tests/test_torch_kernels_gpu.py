@@ -13,6 +13,12 @@ last-bit difference can flip a rounding. K2 f32 d_qe atol 2e-5 * max|d_qe|
 (summation order only); bf16 d_qe 2**-7 * max|d_qe| (d_logits and d_qe are
 rounded to bf16). The autograd function's gradient against autograd
 through the plain forward: rtol/atol 2e-4 (the JAX package's own).
+
+K1 and K2 group the slots by word id and hold each row in the shared
+memory of a cluster of CTAs, so the cases cover the grouping (uniform ids,
+every slot the same id, Zipf ids: chunks of one, of many, and split
+chunks), L not a multiple of the cluster size, the training geometry in
+bf16, bitwise repeatability and an all-masked slot's zero gradient.
 """
 
 import numpy as np
@@ -34,10 +40,19 @@ def cuda():
     return torch.device("cuda")
 
 
-def _bank_args(device, seed, V=24, L=16, E=128, N=21, dtype=torch.float32):
+def _word_ids(rng, V, N, ids):
+    if ids == "same":
+        return np.full(N, V // 2, np.int32)
+    if ids == "zipf":  # P(rank k) ~ k ** -1.1 over the V words: a few take most slots
+        p = np.arange(1, V + 1) ** -1.1
+        return rng.permutation(V)[rng.choice(V, N, p=p / p.sum())].astype(np.int32)
+    return rng.randint(0, V, (N,)).astype(np.int32)
+
+
+def _bank_args(device, seed, V=24, L=16, E=128, N=21, dtype=torch.float32, ids="uniform"):
     rng = np.random.RandomState(seed)
     bank = torch.tensor(rng.randn(V, L, E).astype(np.float32) * 0.3)
-    wt = torch.tensor(rng.randint(0, V, (N,)).astype(np.int32))
+    wt = torch.tensor(_word_ids(rng, V, N, ids))
     qe = torch.tensor(rng.randn(N, E).astype(np.float32) * 0.2)
     km = torch.tensor((rng.randint(0, 4, (N, L)) + (np.arange(L) == 0)).astype(np.int32))
     km[min(3, N - 1)] = 0  # an all-masked slot
@@ -45,11 +60,19 @@ def _bank_args(device, seed, V=24, L=16, E=128, N=21, dtype=torch.float32):
     return (bank.to(device, dtype), wt.to(device), qe.to(device, dtype), km.to(device), mask.to(device))
 
 
+# (V, L, E, N); L = 97 and L = 7 are not multiples of the cluster size (4 in bf16, 8 in f32);
+# E = 40 leaves the last CTAs of a cluster fewer output columns than the others, or none
+SHAPES = [(24, 16, 128, 21), (50, 96, 768, 300), (5, 7, 8, 1), (50, 97, 768, 300), (9, 7, 8, 40),
+          (12, 33, 40, 50)]
+IDS = ["uniform", "same", "zipf"]
+
+
+@pytest.mark.parametrize("ids", IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(24, 16, 128, 21), (50, 96, 768, 300), (5, 7, 8, 1)])
-def test_bank_kernel_matches_plain(cuda, dtype, shape):
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bank_kernel_matches_plain(cuda, dtype, shape, ids):
     V, L, E, N = shape
-    args = _bank_args(cuda, 0, V, L, E, N, dtype)
+    args = _bank_args(cuda, 0, V, L, E, N, dtype, ids)
     before = s2pa_bank_fwd.launches
     ctx, w = s2pa_bank_fwd(*args)
     torch.cuda.synchronize()
@@ -61,11 +84,12 @@ def test_bank_kernel_matches_plain(cuda, dtype, shape):
     torch.testing.assert_close(ctx.float(), ctx_p.float(), rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("ids", IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(24, 16, 128, 21), (50, 96, 768, 300), (5, 7, 8, 1)])
-def test_bank_bwd_kernel_matches_plain(cuda, dtype, shape):
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bank_bwd_kernel_matches_plain(cuda, dtype, shape, ids):
     V, L, E, N = shape
-    args = _bank_args(cuda, 4, V, L, E, N, dtype)
+    args = _bank_args(cuda, 4, V, L, E, N, dtype, ids)
     rng = np.random.RandomState(5)
     g_ctx = torch.tensor(rng.randn(N, E).astype(np.float32), device=cuda).to(dtype)
     g_w = torch.tensor(rng.randn(N, L).astype(np.float32), device=cuda)
@@ -78,6 +102,110 @@ def test_bank_bwd_kernel_matches_plain(cuda, dtype, shape):
     scale = ref.abs().max().item()
     atol = 2e-5 * scale if dtype == torch.float32 else 2 ** -7 * scale
     torch.testing.assert_close(d_qe.float(), ref, rtol=0, atol=atol)
+    assert (d_qe[min(3, N - 1)] == 0).all()  # the all-masked slot
+
+
+def _training_args(device, dtype, ids="uniform"):
+    """The training geometry: bank 8000 x 96 x 768, N = 60 x 64 slots."""
+    args = _bank_args(device, 7, 8000, 96, 768, 3840, dtype, ids)
+    rng = np.random.RandomState(8)
+    g_ctx = torch.tensor(rng.randn(3840, 768).astype(np.float32), device=device).to(dtype)
+    g_w = torch.tensor(rng.randn(3840, 96).astype(np.float32), device=device)
+    return args, g_ctx, g_w
+
+
+@pytest.mark.parametrize("ids", ["uniform", "zipf"])
+def test_bank_kernels_at_the_training_geometry_bf16(cuda, ids):
+    args, g_ctx, g_w = _training_args(cuda, torch.bfloat16, ids)
+    ctx, w = s2pa_bank_fwd(*args)
+    d_qe = s2pa_bank_bwd(*args, g_ctx, g_w)
+    torch.cuda.synchronize()
+    ctx_p, w_p = s2pa_bank_fwd_plain(*args)
+    torch.testing.assert_close(w, w_p, rtol=0, atol=2e-6)
+    torch.testing.assert_close(ctx.float(), ctx_p.float(), rtol=0,
+                               atol=2 ** -7 * ctx_p.float().abs().max().item())
+    del ctx_p, w_p
+    ref = s2pa_bank_bwd_plain(*args, g_ctx, g_w).float()
+    torch.testing.assert_close(d_qe.float(), ref, rtol=0, atol=2 ** -7 * ref.abs().max().item())
+    assert (d_qe[3] == 0).all()  # the all-masked slot
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bank_kernels_are_bitwise_repeatable(cuda, dtype):
+    args = _bank_args(cuda, 9, 50, 97, 768, 600, dtype, "zipf")
+    rng = np.random.RandomState(10)
+    g_ctx = torch.tensor(rng.randn(600, 768).astype(np.float32), device=cuda).to(dtype)
+    g_w = torch.tensor(rng.randn(600, 97).astype(np.float32), device=cuda)
+    first = (*s2pa_bank_fwd(*args), s2pa_bank_bwd(*args, g_ctx, g_w))
+    second = (*s2pa_bank_fwd(*args), s2pa_bank_bwd(*args, g_ctx, g_w))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_bank_kernels_take_the_callers_slot_order(cuda):
+    """The private entry the autograd function uses, with the slot order the
+    forward saved, gives the public wrapper's bits; a malformed order is
+    refused."""
+    from dicttts_tpu_torch.ops.s2pa_bank import _bwd, _fwd, slot_order
+
+    args = _bank_args(cuda, 11, 24, 16, 128, 200, torch.float32, "zipf")
+    g_ctx = torch.randn(200, 128, device=cuda)
+    g_w = torch.randn(200, 16, device=cuda)
+    ids, order = slot_order(args[1])
+    for a, b in zip(s2pa_bank_fwd(*args), _fwd(*args, (ids, order))):
+        assert torch.equal(a, b)
+    assert torch.equal(s2pa_bank_bwd(*args, g_ctx, g_w), _bwd(*args, g_ctx, g_w, (ids, order)))
+    with pytest.raises(ValueError):
+        _fwd(*args, (ids, order.int()))
+
+
+@pytest.mark.parametrize("ids", ["uniform", "all_same", "zipf", "runs", "one"])
+def test_bank_slot_chunks_partition_the_slots(cuda, ids):
+    """The kernels' chunks (the library's rule): every slot in exactly one
+    chunk, one word id per chunk, and a frequent word split into chunks of
+    one fixed length, so it leaves no long serial tail."""
+    from dicttts_tpu_torch.ops.s2pa_bank import bank_slot_chunks, slot_order
+
+    rng = np.random.RandomState(3)
+    N, Vw = 300, 50
+    wt = {"uniform": rng.randint(0, Vw, N), "all_same": np.full(N, 7),
+          "zipf": np.minimum(rng.zipf(1.1, N), Vw) - 1,
+          "runs": np.repeat(np.arange(6), [1, 8, 9, 17, 30, 235]), "one": np.array([4])}[ids]
+    sorted_ids, order = slot_order(torch.tensor(wt.astype(np.int32), device=cuda))
+    starts, counts = bank_slot_chunks(sorted_ids)
+    sorted_ids, order = sorted_ids.cpu(), order.cpu()
+    assert int(counts.sum()) == len(wt)
+    assert starts[0] == 0 and bool((counts >= 1).all())
+    seen = torch.cat([order[s:s + c] for s, c in zip(starts.tolist(), counts.tolist())])
+    assert sorted(seen.tolist()) == list(range(len(wt)))  # every slot exactly once
+    for s, c in zip(starts.tolist(), counts.tolist()):
+        assert len(set(sorted_ids[s:s + c].tolist())) == 1  # one row per chunk
+    seg = int(bank_slot_chunks(torch.full((N,), 7, dtype=torch.int32))[1][0])
+    assert 1 < seg < 16 and bool((counts <= seg).all())
+    # a chunk ends only where the id changes or at a multiple of the split length
+    ends = (starts + counts)[:-1]
+    assert all(e % seg == 0 or sorted_ids[e] != sorted_ids[e - 1] for e in ends.tolist())
+    distinct = len(np.unique(wt))
+    assert distinct <= starts.numel() <= distinct + len(wt) // seg
+    if ids == "all_same":  # one frequent word: split into full chunks, no long tail
+        assert counts.tolist() == [seg] * (N // seg) + ([N % seg] if N % seg else [])
+
+
+def test_bank_kernel_plan(cuda):
+    from dicttts_tpu_torch.ops.s2pa_bank import bank_kernel_plan
+
+    for dtype, C in ((torch.bfloat16, 4), (torch.float32, 8)):
+        got_c, smem = bank_kernel_plan(96, 768, dtype)
+        assert got_c == C
+        assert 4 * (smem + 1024) <= 228 * 1024  # four CTAs an SM at the production shape
+        slice_bytes = -(-96 // C) * 768 * (2 if dtype == torch.bfloat16 else 4)
+        assert slice_bytes <= smem <= 227 * 1024
+    assert bank_kernel_plan(7, 8, torch.bfloat16)[0] == 4  # L=7 over 4 CTAs: 2, 2, 2, 1
+    assert bank_kernel_plan(97, 768, torch.float32)[0] == 8  # 13 a CTA, the last 6
+    assert bank_kernel_plan(600, 768, torch.bfloat16)[0] == 8  # 150 tokens a CTA at 4: doubled
+    for L, E in ((96, 12), (96, 1032), (2000, 1024), (1100, 8)):
+        with pytest.raises(ValueError):
+            bank_kernel_plan(L, E, torch.float32)
 
 
 def test_bank_autograd_matches_plain_gradient(cuda):
