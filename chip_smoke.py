@@ -39,23 +39,40 @@ Phases, each announced on its own line:
     from its checkpoint and a third step;
  7c. one train step at full width on the card and on the CPU (plain
     versions) from the same weights, dropout 0, pinned noise and crops, at
-    B=2, Tw=16, 128 frames: every loss and both gradient norms compared.
+    B=2, Tw=16, 128 frames: every loss and both gradient norms compared;
+ 8. the recipe's own entry point on the corpus: ``python -m
+    dicttts_tpu_torch.run``'s ``main`` with the recipe's config
+    (configs/datasets/biaobei/dict_tts.yaml: its widths, its token-budget
+    batching into the 256/512/768-frame buckets, the frame cache) on the
+    repo's binarized train/valid/test splits (.prod_corpus/binary; a corpus
+    of the same format and statistics written from the seed where the
+    checkout has none) and a stand-in dict_embed written from the seed (all
+    8000 word ids, glosses of 1-56 tokens, so L = 64): 16 steps (two
+    epochs) with validations and checkpoints, a resume for 2 more, then
+    --infer over the 18 test utterances into meta.csv; K1 and K2 checked
+    against their plain versions on the recipe's bank and a real batch's
+    word ids. It prints the step ms by batch shape and mel bucket, the
+    host's wait for batches, the bank's and the frame cache's bytes and
+    upload seconds, peak memory and ms per test utterance.
 
 Before the last line it prints one JSON line of kernel results
-({"kernels": [...]}) and the total seconds; the last line is
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero; so
-does a machine without CUDA. Nothing is written outside the gitignored
-build directory dicttts_tpu_torch/_build/ and a temporary directory that
-phase 7b removes.
+({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
+seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
+and exits non-zero; so does a machine without CUDA. Nothing is written
+outside the gitignored build directory dicttts_tpu_torch/_build/ and the
+temporary directories that phases 7b and 8 remove.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
 import faulthandler
 import json
 import math
 import os
+import pickle
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -74,6 +91,11 @@ SAMPLE_RATE, HOP = 22050, 256
 BATCHES = ((1, 32), (4, 48), (16, 64))  # (requests, word slots per request)
 TRAIN_B, TRAIN_TW, TRAIN_T = 60, 64, 512  # recipe max_sentences 60, the 512-frame bucket
 TRAIN_WARMUP, TRAIN_STEPS = 2, 20
+REPO = os.path.dirname(os.path.abspath(__file__))
+RECIPE_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml"
+RECIPE_STEPS, RESUME_STEPS = 16, 2  # two epochs of the train split's 8 batches
+CORPUS_SPLITS = {"train": 324, "valid": 18, "test": 18}  # the repo's corpus, .prod_corpus/binary
+CORPUS_FILES = ("word_set.json", "phone_set.json", "pinyin_encoder.pkl", "spk_map.json")
 
 
 def say(msg: str) -> None:
@@ -543,9 +565,9 @@ def train_step_card_vs_cpu(device, bank):
     from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 
     cfg = {"dropout": 0.0, "predictor_dropout": 0.0, "disc_dropout": 0.0}
-    card = DictTTSTask(cfg, bank, device=device)
+    card = DictTTSTask(cfg, bank=bank, device=device)
     card.build_state(SEED + 2)
-    cpu = DictTTSTask(cfg, {k: v.cpu() for k, v in bank.items()}, device="cpu")
+    cpu = DictTTSTask(cfg, bank={k: v.cpu() for k, v in bank.items()}, device="cpu")
     cpu.build_state(SEED + 2)
     cpu.model.load_state_dict(card.model.state_dict())
     cpu.disc.load_state_dict(card.disc.state_dict())
@@ -602,6 +624,252 @@ def check_results(results, hop):
             raise AssertionError("non-finite wav or mel")
         if np.abs(r.wav).max() < 1e-4:
             raise AssertionError("silent wav")
+
+
+def synthetic_corpus(binary, rng):
+    """A corpus in the binarizer's format with the repo corpus's statistics,
+    for a checkout without .prod_corpus: 324/18/18 utterances of 214-574
+    frames and 22-58 words (one character each, between <BOS> and <EOS>),
+    a vocabulary of 7998 words and 166 pinyin tokens, log-mel-like values."""
+    from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
+    from dicttts_tpu_torch.utils.text_encoder import TokenTextEncoder
+
+    chars = [chr(0x4E00 + i) for i in range(7996)]
+    with open(os.path.join(binary, "word_set.json"), "w") as f:
+        json.dump(["<BOS>", "<EOS>", *chars], f)
+    with open(os.path.join(binary, "phone_set.json"), "w") as f:
+        json.dump(["#", "<BOS>", "<EOS>", *(f"ph{i}" for i in range(164))], f)
+    with open(os.path.join(binary, "pinyin_encoder.pkl"), "wb") as f:
+        pickle.dump(["<pad>", "<UNK>", "", *(f"py{i}" for i in range(163))], f)
+    with open(os.path.join(binary, "spk_map.json"), "w") as f:
+        json.dump({"<SINGLE_SPK>": 0}, f)
+    words = TokenTextEncoder.from_json(os.path.join(binary, "word_set.json"))
+    n_item = 0
+    for split, n in CORPUS_SPLITS.items():
+        lengths = []
+        with IndexedDatasetBuilder(os.path.join(binary, split)) as b:
+            for _ in range(n):
+                T, n_words = rng.randint(214, 575), rng.randint(22, 59)
+                text = "".join(chars[j] for j in rng.randint(0, len(chars), n_words - 2))
+                ws = ["<BOS>", *text, "<EOS>"]
+                dur = np.concatenate([[5], 1 + rng.multinomial(T - 29 - (n_words - 2),
+                                                               np.full(n_words - 2, 1 / (n_words - 2))),
+                                      [24]])
+                mel2word = np.repeat(np.arange(1, n_words + 1), dur)
+                ph2word = np.concatenate([[1], np.repeat(np.arange(2, n_words), 2), [n_words]])
+                b.add_item({
+                    "item_name": f"s{n_item:04d}", "txt": text, "ph": "", "spk_id": 0,
+                    "phone": rng.randint(3, 167, len(ph2word)).tolist(),
+                    "mel": (rng.randn(T, 80) * 0.8 - 4.5).astype(np.float32),
+                    "words": ws, "word_tokens": [words.token_to_id[w] for w in ws],
+                    "ph2word": ph2word, "mel2word": mel2word,
+                    "pron_modified": np.zeros(n_words, np.int64)})
+                lengths.append(T)
+                n_item += 1
+        np.save(os.path.join(binary, f"{split}_lengths.npy"), np.array(lengths))
+
+
+def standin_bank(binary, rng):
+    """dict_embed in the binarizer's format, written from the seed: an entry
+    for every word id, gloss keys of 1-56 tokens (mean ~19, as the
+    corpus's 494 MB file has; so L buckets to 64) by 768 in float16, 1-3
+    senses over contiguous gloss tokens, two pinyin tokens a sense drawn
+    from pinyin_encoder.pkl. Only what device_bank reads."""
+    from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
+
+    with open(os.path.join(binary, "pinyin_encoder.pkl"), "rb") as f:
+        pinyin = pickle.load(f)
+    V = BANK_V
+    lens = np.floor(rng.triangular(1, 1, 57, V)).astype(int)
+    lens[5] = 56
+    keys = rng.randn(int(lens.sum()), BANK_E).astype(np.float16)
+    offsets = np.concatenate([[0], np.cumsum(lens)])
+    with IndexedDatasetBuilder(os.path.join(binary, "dict_embed")) as b:
+        for i in range(V):
+            n, ns = lens[i], rng.randint(1, 4)
+            b.add_item({"key": keys[offsets[i]:offsets[i + 1]],
+                        "key_map": np.arange(n) * ns // n + 1,
+                        "pinyin": [pinyin[j] for j in rng.randint(2, len(pinyin), 2 * ns)],
+                        "pinyin_map": np.repeat(np.arange(1, ns + 1), 2)})
+    return lens
+
+
+def prepare_corpus(binary, rng):
+    """Link the repo's splits into ``binary`` (or write a synthetic corpus),
+    then write the stand-in bank. Returns "repo" or "synthetic"."""
+    src = os.path.join(REPO, ".prod_corpus", "binary")
+    if os.path.exists(os.path.join(src, "train.idx")):
+        for name in (*CORPUS_FILES, *(f"{s}{ext}" for s in CORPUS_SPLITS
+                                      for ext in (".data", ".idx", "_lengths.npy"))):
+            os.symlink(os.path.join(src, name), os.path.join(binary, name))
+        corpus = "repo"
+    else:
+        synthetic_corpus(binary, rng)
+        corpus = "synthetic"
+    lens = standin_bank(binary, rng)
+    where = ("the repo's .prod_corpus/binary splits" if corpus == "repo"
+             else "written from the seed: the checkout has no .prod_corpus/binary")
+    say(f"corpus: {corpus} ({where}); stand-in dict_embed from seed {SEED}: {BANK_V} entries, gloss "
+        f"tokens {lens.min()}-{lens.max()} (mean {lens.mean():.1f}), "
+        f"{os.path.getsize(os.path.join(binary, 'dict_embed.data')) / 1e6:.0f} MB")
+    return corpus
+
+
+def step_report(history, label, smi):
+    """Step ms by batch shape (sentences x mel frames): the shape's first
+    step, which meets new shapes in cuDNN and the allocator, apart from its
+    repeats; the median of the repeats by mel bucket; the host's wait."""
+    by_shape = {}
+    for h in history:
+        by_shape.setdefault((h["frames"], h["sentences"]), []).append(h["step_ms"])
+    for (frames, b), ms in sorted(by_shape.items()):
+        say(f"{label} {b} x {frames} frames: {len(ms)} steps, ms " + " ".join(f"{t:.1f}" for t in ms)
+            + f"; on {smi}")
+    buckets = {}
+    for (frames, b), ms in by_shape.items():
+        buckets.setdefault(frames, []).extend(ms[1:])
+    for frames, later in sorted(buckets.items()):
+        if later:
+            say(f"{label} bucket {frames} frames: median {statistics.median(later):.2f} ms over the "
+                f"{len(later)} repeated shapes' steps; on {smi}")
+    waits = [h["wait_ms"] for h in history]
+    say(f"{label} host wait for the next batch (prefetch queue): median {statistics.median(waits):.3f} ms, "
+        f"max {max(waits):.3f} ms, first {waits[0]:.3f} ms over {len(waits)} steps")
+    return {"step_ms": {f"{b}x{frames}": ms for (frames, b), ms in sorted(by_shape.items())},
+            "wait_ms": waits}
+
+
+def recipe_bank_case(task, gen):
+    """K1/K2 inputs at the recipe path's shapes: the task's bank and the
+    word ids of the corpus's first train batch, one all-masked slot."""
+    batch = next(iter(task.data.train_batches()))
+    wt = torch.as_tensor(batch["word_tokens"], device="cuda").flatten()
+    bank = task.bank["keys"]
+    N, L, E = wt.shape[0], bank.shape[1], bank.shape[2]
+    qe = (torch.randn((N, E), generator=gen, device="cuda") * (3.0 / math.sqrt(E))).to(bank.dtype)
+    km = task.bank["key_map"][wt.long()].clone()
+    km[7] = 0  # an all-masked slot: uniform weights, zero gradient
+    mask = (torch.rand((N, L), generator=gen, device="cuda") >= 0.1).float() / 0.9
+    g_ctx = torch.randn((N, E), generator=gen, device="cuda").to(bank.dtype)
+    g_w = torch.randn((N, L), generator=gen, device="cuda")
+    return (bank, wt, qe, km, mask), g_ctx, g_w, tuple(batch["word_tokens"].shape)
+
+
+def recipe_entry_point(gen, smi):
+    """Phase 8: train, resume and infer through dicttts_tpu_torch.run.main on
+    the corpus. Returns (corpus, launches by run, the K1/K2 case at the
+    recipe's shapes, the report)."""
+    from dicttts_tpu_torch import run
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
+    from dicttts_tpu_torch.utils.checkpoint import BEST, get_all_ckpts
+
+    def counts():
+        return s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, s2pa_fused.launches
+
+    report, launches = {}, {}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        t = time.time()
+        corpus = prepare_corpus(binary, np.random.RandomState(SEED))
+        say(f"corpus ready in {time.time() - t:.1f} s")
+        base = ["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", "recipe", "--device", "cuda"]
+        work_dir = os.path.join(root, "checkpoints", "recipe")
+        os.chdir(root)  # run.py's work_dir is checkpoints/<exp_name> under the current directory
+        try:
+            hp = (f"binary_data_dir={binary},max_updates={RECIPE_STEPS},"
+                  f"val_check_interval={RECIPE_STEPS // 2},num_sanity_val_steps=1")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+            t = time.time()
+            trainer, task = run.main(base + ["--hparams", hp])
+            torch.cuda.synchronize()
+            launches["recipe_train"] = counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            say(f"run.main trained {trainer.global_step} steps in {time.time() - t:.1f} s (the bank's and "
+                f"the cache's build, validations and checkpoints included); peak memory {peak:.2f} GiB; on {smi}")
+            c = task.cfg
+            say(f"recipe widths: hidden {c['hidden_size']}, dict_embed_dim {c['dict_embed_dim']}, word_size "
+                f"{c['word_size']}, value_embedding_size {c['value_embedding_size']}, max_tokens {c['max_tokens']}, "
+                f"max_sentences {c['max_sentences']}, mel_buckets {c['mel_buckets']}, frame cache "
+                f"{c['use_device_frame_cache']}, bank {tuple(task.bank['keys'].shape)} {task.bank['keys'].dtype}")
+            for name, u in task.uploads.items():
+                say(f"{name}: {u['bytes']} bytes ({u['bytes'] / 1e6:.1f} MB), built on the host in "
+                    f"{u['build_s']:.2f} s, uploaded in {u['upload_s']:.3f} s; on {smi}")
+            report = {"corpus": corpus, "peak_gib": peak, "uploads": task.uploads,
+                      "train": step_report(trainer.history, "train", smi)}
+            vals = {k: float(v) for k, v in trainer.metrics.items()}
+            say(f"last step: {vals}; validation: {trainer.val_metrics}")
+            finite = all(math.isfinite(v) for v in (*vals.values(), *trainer.val_metrics.values()))
+            finite = finite and all(bool(torch.isfinite(p).all()) for p in task.model.parameters())
+            names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
+            say(f"launches in the run (K1, K2, K3): {launches['recipe_train']}; checkpoints {names}, "
+                f"best {os.path.exists(os.path.join(work_dir, BEST))}")
+            if not (trainer.global_step == RECIPE_STEPS and finite and "grad_norm_g" in vals):
+                raise AssertionError(f"the recipe's run did not train {RECIPE_STEPS} finite steps")
+            want = [f"model_ckpt_steps_{RECIPE_STEPS}.ckpt", f"model_ckpt_steps_{RECIPE_STEPS // 2}.ckpt"]
+            if names[:2] != want or not os.path.exists(os.path.join(work_dir, BEST)):
+                raise AssertionError(f"missing checkpoints: {names}")
+            k1, k2, k3 = launches["recipe_train"]
+            if not (k2 == RECIPE_STEPS and k1 > RECIPE_STEPS and k3 == 0):
+                raise AssertionError(f"K1/K2 not launched every step (K1 {k1}, K2 {k2}, K3 {k3})")
+            args, g_ctx, g_w, shape = recipe_bank_case(task, gen)
+            del trainer, task
+            torch.cuda.empty_cache()
+
+            s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+            trainer, task = run.main(base + ["--hparams", f"max_updates={RECIPE_STEPS + RESUME_STEPS}"])
+            torch.cuda.synchronize()
+            launches["recipe_resume"] = counts()
+            names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
+            say(f"resumed at step {RECIPE_STEPS}, trained to {trainer.global_step}: checkpoints {names}, "
+                f"launches (K1, K2, K3) {launches['recipe_resume']}")
+            report["resume"] = step_report(trainer.history, "resume", smi)
+            if not ([h["step"] for h in trainer.history] == [RECIPE_STEPS + 1, RECIPE_STEPS + 2]
+                    and names[0] == f"model_ckpt_steps_{RECIPE_STEPS + RESUME_STEPS}.ckpt"
+                    and launches["recipe_resume"][1] == RESUME_STEPS):
+                raise AssertionError("the resumed run did not continue from its checkpoint")
+            del trainer, task
+
+            s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+            trainer, task = run.main(base + ["--infer"])
+            torch.cuda.synchronize()
+            launches["recipe_infer"] = counts()
+            n_test = CORPUS_SPLITS["test"]
+            report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
+            say(f"--infer: {n_test} test utterances in {trainer.test_seconds:.2f} s, "
+                f"{report['test_ms_per_utterance']:.2f} ms per utterance (batches of 1, max_frames "
+                f"{task.cfg['max_frames']}, mel and meta.csv writes included); launches (K1, K2, K3) "
+                f"{launches['recipe_infer']}; on {smi}")
+            check_meta(os.path.join(work_dir, "generated"), binary, n_test)
+            if launches["recipe_infer"] != (n_test, 0, 0):
+                raise AssertionError(f"--infer launched {launches['recipe_infer']}, not K1 once a batch")
+            del trainer, task
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+    return corpus, launches, (args, g_ctx, g_w, shape), report
+
+
+def check_meta(gen_dir, binary, n_test):
+    """meta.csv: the JAX layout, a row per test utterance, two pinyin
+    tokens per character; a mel file per row."""
+    from dicttts_tpu_torch.utils.indexed_dataset import IndexedDataset
+
+    with open(os.path.join(gen_dir, "meta.csv"), newline="") as f:
+        rows = list(csv.reader(f))
+    with IndexedDataset(os.path.join(binary, "test")) as ds:
+        n_words = {ds[i]["item_name"]: len(ds[i]["word_tokens"]) for i in range(len(ds))}
+    header = ["", "item_name", "text", "pinyin_tokens", "wav_fn_pred", "wav_fn_gt"]
+    bad = [r[1] for r in rows[1:] if len(r) != 6 or not r[3]
+           or len(r[3].split(" ")) != 2 * (n_words[r[1]] - 2)
+           or not os.path.exists(os.path.join(gen_dir, f"{r[1]}.mel.npy"))]
+    say(f"meta.csv: {len(rows) - 1} rows; first: {rows[1][:4] if len(rows) > 1 else None}")
+    if rows[0] != header or len(rows) != n_test + 1 or bad:
+        raise AssertionError(f"meta.csv is not the JAX layout with {n_test} rows (bad rows {bad})")
 
 
 def main() -> int:
@@ -754,12 +1022,25 @@ def main() -> int:
     say("phase 7c: one train step on the card and on the CPU, same weights, dropout 0")
     train_step_card_vs_cpu(device, train_bank)
     say(f"phase 7c done at {time.time() - T_START:.1f} s")
+    del train_bank
+    torch.cuda.empty_cache()
+
+    say(f"phase 8: the recipe's entry point (dicttts_tpu_torch.run) on the corpus, {RECIPE_CONFIG}")
+    corpus, recipe_launches, (args, g_ctx, g_w, shape), report = recipe_entry_point(gen, smi)
+    N = args[1].shape[0]
+    cases.append(check_bank_case(args, g_ctx, g_w, f"recipe bf16 L={args[0].shape[1]} N={N} "
+                                 f"(a corpus batch {shape[0]}x{shape[1]})", smi))
+    del args, g_ctx, g_w
+    say("phase 8 report " + json.dumps(report))
+    say(f"phase 8 done at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),
                                   ("k2", "s2pa_bank_bwd", "s2pa_bank_bwd.cu", 163)):
         launches = ({"serving": k1_serving, "training": k1_train} if key == "k1"
                     else {"training": k2_train})
+        i = 0 if key == "k1" else 1
+        launches.update({path: n[i] for path, n in recipe_launches.items()})
         by_case = [{"case": c["case"], "distinct_rows": c["distinct_rows"], "chunks": c["chunks"],
                     **{k: v for k, v in c[key].items() if k != "bound_by"}} for c in cases if key in c]
         main_ = main_case[key]  # the training path: the recipe's bf16 bank, corpus-like ids
@@ -772,7 +1053,9 @@ def main() -> int:
                         # K1's slot order (one torch.sort, shared with K2) is timed apart
                         **({"sort_ms": main_["sort_ms"]} if "sort_ms" in main_ else {}),
                         "main_case": main_case["case"], "cases": by_case})
-    print(json.dumps({"kernels": [*kernels, k3]}), flush=True)
+    k3["launches_by_path"] = {"gathered_serving": k3["launches"],
+                              **{path: n[2] for path, n in recipe_launches.items()}}
+    print(json.dumps({"kernels": [*kernels, k3], "corpus": corpus}), flush=True)
     print(f"chip_smoke total {time.time() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,25 +1,12 @@
 """Sequence glue: masks, length regulation and the word-to-frame gather.
 
-Port of ``dicttts_tpu/ops/seq.py`` (and ``shape_bucket`` from
-``dicttts_tpu/data/collate.py``). All functions take and return
+Port of ``dicttts_tpu/ops/seq.py``. All functions take and return
 feature-last ``[B, T, C]`` tensors and integer maps, as the JAX versions do.
 """
 
 from __future__ import annotations
 
 import torch
-
-
-def shape_bucket(length: int, multiple: int = 32, buckets: tuple[int, ...] | None = None) -> int:
-    """Quantize a pad length to a static bucket boundary: the smallest of
-    ``buckets`` that is >= length (the last one if none fits), else
-    ``length`` rounded up to ``multiple``."""
-    if buckets:
-        for b in buckets:
-            if length <= b:
-                return b
-        return buckets[-1]
-    return ((length + multiple - 1) // multiple) * multiple
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

@@ -28,11 +28,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dicttts_tpu_torch.data.collate import shape_bucket
 from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
-from dicttts_tpu_torch.ops.seq import shape_bucket
 from dicttts_tpu_torch.vocoders.hifigan import MEL_SILENCE, spec2wav
 
 BANK_KEYS = ("keys", "key_map", "pinyin", "pinyin_map")

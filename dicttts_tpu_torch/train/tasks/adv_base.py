@@ -24,16 +24,43 @@ torch's AdamW is optax's ``adamw`` rule: bias-corrected moments, eps added
 to the root of the second moment, decoupled weight decay applied as
 lr * wd * param. Parameters that got no gradient are stepped with a zero
 gradient, as optax does.
+
+Batches reach the steps through ``to_device`` (host arrays to tensors on
+the task's device, transfer dtypes upcast) and ``prepare_batch``, which
+resolves frame-ref batches (``use_device_frame_cache``: ``item_idx`` in
+place of the mels) from the frame cache that ``attach_device_frame_cache``
+uploads once.
 """
 
 from __future__ import annotations
 
 import contextlib
+import logging
+import time
 
+import numpy as np
 import torch
 
 from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
+from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
+
+log = logging.getLogger("dicttts_tpu_torch.task")
+
+
+def upcast_transfer_dtypes(batch: dict) -> dict:
+    """float16 entries (mels under amp) to float32 and int16 ones (frame-ref
+    alignments) to int32, as the JAX package's ``upcast_transfer_dtypes``;
+    other entries unchanged."""
+    def up(v):
+        if isinstance(v, torch.Tensor):
+            if v.dtype == torch.float16:
+                return v.float()
+            if v.dtype == torch.int16:
+                return v.int()
+        return v
+
+    return {k: up(v) for k, v in batch.items()}
 
 
 def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
@@ -61,7 +88,10 @@ def frozen(module: torch.nn.Module):
 
 
 class AdversarialTTSTask:
-    """Base: generator + multi-window mel discriminator training."""
+    """Base: generator + multi-window mel discriminator training. Subclasses
+    set ``cfg``, ``device`` and ``data`` (the batch provider, or None)."""
+
+    frame_cache: dict | None = None  # {'mels' [N, T, 80], ('f0', 'uv' [N, T])} on the device
 
     def _init_adv(self, cfg: dict) -> None:
         self.lambda_adv = cfg["lambda_mel_adv"]
@@ -70,6 +100,7 @@ class AdversarialTTSTask:
         self.schedule_g = rsqrt_schedule(cfg["lr"], cfg["warmup_updates"], cfg["hidden_size"])
         sched = cfg["discriminator_scheduler_params"]
         self.schedule_d = step_decay_schedule(cfg["disc_lr"], sched["step_size"], sched["gamma"])
+        self.uploads: dict = {}  # what _hold put on the device: bytes and seconds by name
 
     def _build_disc(self) -> MultiWindowDiscriminator:
         cfg = self.cfg
@@ -89,6 +120,65 @@ class AdversarialTTSTask:
         self.step = 0  # train steps taken
         self.updates_g = 0  # optimizer updates applied (the schedules' counts)
         self.updates_d = 0
+
+    def _hold(self, name: str, make) -> dict:
+        """``make()``'s arrays as tensors on the device; its build and upload
+        times and its bytes are logged and kept in ``self.uploads[name]``."""
+        t0 = time.perf_counter()
+        host = make()
+        t1 = time.perf_counter()
+        held = {k: bank_tensor(v, self.device) for k, v in host.items()}
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n_bytes = sum(v.numel() * v.element_size() for v in held.values())
+        self.uploads[name] = {"bytes": n_bytes, "build_s": t1 - t0,
+                              "upload_s": time.perf_counter() - t1}
+        log.info("%s: %.1f MB on %s (built in %.2f s, uploaded in %.2f s)", name, n_bytes / 1e6,
+                 self.device, t1 - t0, self.uploads[name]["upload_s"])
+        return held
+
+    def attach_device_frame_cache(self) -> None:
+        """With ``use_device_frame_cache``, upload the train split's frame
+        cache (``data.ds.device_frame_cache``) once."""
+        if not self.cfg.get("use_device_frame_cache") or self.frame_cache is not None:
+            return
+        ds = getattr(self.data, "ds", None)
+        if not hasattr(ds, "device_frame_cache"):
+            # the train provider emits item_idx-only batches under the flag
+            raise ValueError("use_device_frame_cache=true but the data provider exposes no "
+                             ".ds.device_frame_cache (unset the flag, or give the task run.py's "
+                             "provider)")
+        self.frame_cache = self._hold(
+            "frame_cache", lambda: ds.device_frame_cache(max_frames=self.cfg.get("max_frames")))
+
+    def to_device(self, batch: dict) -> dict:
+        """Host arrays (or tensors) to tensors on the task's device, with the
+        transfer dtypes upcast; other entries (``_meta``) pass through."""
+        return upcast_transfer_dtypes({
+            k: torch.as_tensor(v).to(self.device) if isinstance(v, (np.ndarray, torch.Tensor)) else v
+            for k, v in batch.items()})
+
+    def prepare_batch(self, batch: dict) -> dict:
+        """Resolve a frame-ref batch: gather each row's mels (and f0/uv) from
+        the frame cache by ``item_idx``, cut to the batch's bucket (the
+        width of mel2word) and zeroed at and after the row's mel_lengths.
+        Pad rows carry item 0 with length 0, so they get zero mels, as a
+        streamed batch's pad rows have; without the mask they would train
+        toward item 0's mel. Real rows are zero past their length in the
+        cache already, so a gathered batch equals the streamed one."""
+        if "item_idx" not in batch:
+            return batch
+        if self.frame_cache is None:
+            raise ValueError("a frame-ref batch (item_idx), but the task holds no frame cache")
+        batch = dict(batch)
+        idx = batch.pop("item_idx").long()
+        T = batch["mel2word"].shape[-1]
+        fmask = torch.arange(T, device=idx.device)[None, :] < batch["mel_lengths"][:, None]
+        for key, cache in self.frame_cache.items():
+            rows = cache[:, :T].index_select(0, idx)
+            mask = fmask[..., None] if rows.ndim == 3 else fmask
+            batch[key] = rows * mask.to(rows.dtype)
+        return upcast_transfer_dtypes(batch)
 
     # subclass contract:
     #   _gen_losses(batch, generator, train, adv_w=1.0, eps=None, start_frames=None)
@@ -130,6 +220,7 @@ class AdversarialTTSTask:
         discriminator loss) may be given instead. Returns the losses, and
         the pre-clip gradient norm of each parameter set that was updated,
         as device scalars."""
+        batch = self.prepare_batch(batch)
         step = self.step
         adv_on = step >= self.disc_start_steps and self.lambda_adv > 0
         disc_on = adv_on and step % self.disc_interval == 0
@@ -164,6 +255,7 @@ class AdversarialTTSTask:
     def val_step(self, batch: dict, generator: torch.Generator | None = None,
                  eps: torch.Tensor | None = None) -> dict:
         """Generator losses in eval mode (no dropout, no adversarial term)."""
+        batch = self.prepare_batch(batch)
         self.model.eval()
         _, losses, _ = self._gen_losses(batch, generator, False, eps=eps)
         losses["total_loss"] = sum(losses.values())

@@ -14,21 +14,35 @@ the un-gathered bank: K1 forward, K2 backward, in the bank's dtype, with
 the query cast to it as the JAX fused branch casts it. Batches that carry
 gathered banks are not ported.
 
+Built as ``run.py`` builds it, ``DictTTSTask(cfg, data)`` takes the bank
+from ``data.ds.device_bank()`` and its batches from ``data``; with
+``use_device_frame_cache`` (the recipe) train batches carry ``item_idx`` in
+place of the mels (``adv_base.prepare_batch``). ``after_test_step`` and
+``test_end`` write ``<work_dir>/generated/<item>.mel.npy`` (and the wav,
+with ``vocoder_ckpt``) and ``meta.csv``, whose pinyin column the PER scorer
+reads (``eval/per.py``).
+
 Batch keys (the collater's): word_tokens [B, Tw], pron_modified [B, Tw],
-mel2word [B, T_mel], mels [B, T_mel, 80], word_lengths [B],
-mel_lengths [B].
+mel2word [B, T_mel], mels [B, T_mel, 80] (or item_idx [B]),
+word_lengths [B], mel_lengths [B].
 """
 
 from __future__ import annotations
 
+import csv
+import os
+import pickle
+
+import numpy as np
 import torch
 
+from dicttts_tpu_torch.eval.per import decode_pinyin_ids
 from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
-from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.serve import BANK_KEYS, pinyin_decode, resolve_device
 from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.train.tasks.adv_base import AdversarialTTSTask
+from dicttts_tpu_torch.vocoders.hifigan import load_vocoder, save_wav, spec2wav
 
 # The production recipe (configs/tts/dict_tts.yaml on ps_adv.yaml,
 # ps_flow.yaml and base.yaml). tests/test_torch_train_task.py holds every
@@ -67,23 +81,36 @@ _REQUIRED = {"use_prior_glow": True, "use_spk_id": False, "accumulate_grad_batch
 
 
 class DictTTSTask(AdversarialTTSTask):
-    """cfg: overrides of ``DEFAULTS`` (plus ``disc_dropout``); bank: the
-    device bank {'keys' [V, L, E], 'key_map' [V, L], 'pinyin' [V, P],
-    'pinyin_map' [V, P]} (numpy arrays, bf16 ones included, or tensors),
+    """cfg: overrides of ``DEFAULTS`` (plus ``disc_dropout``); data: the
+    batch provider (``run.py::build_data_provider``), whose ``.ds`` gives
+    the device bank, or None; bank: a device bank given directly instead
+    {'keys' [V, L, E], 'key_map' [V, L], 'pinyin' [V, P], 'pinyin_map'
+    [V, P]} (numpy arrays, bf16 ones included, or tensors). The bank is
     held on ``device`` in the dtypes it arrives in: the keys bf16 as the
     recipe trains, or f32."""
 
-    def __init__(self, cfg: dict | None = None, bank: dict | None = None, device="cuda"):
+    def __init__(self, cfg: dict | None = None, data=None, device="cuda", *, bank: dict | None = None):
         self.cfg = {**DEFAULTS, "disc_dropout": DISC_DROPOUT, **(cfg or {})}
         for key, value in _REQUIRED.items():
             if self.cfg[key] != value:
                 raise ValueError(f"the port supports only {key}={value!r}, got {self.cfg[key]!r}")
         self.device = resolve_device(device)
+        self.data = data
         self._init_adv(self.cfg)
         self.mel_loss_spec = L.parse_mel_loss_spec(self.cfg["mel_loss"])
-        self.bank = None
-        if bank is not None:
-            self.bank = {k: bank_tensor(bank[k], self.device) for k in BANK_KEYS}
+        ds = getattr(data, "ds", None)
+        if bank is None and data is not None and not hasattr(ds, "device_bank"):
+            raise ValueError("use_device_dict_bank=true but the data provider exposes no "
+                             ".ds.device_bank (give the task run.py's provider)")
+
+        def read_bank():
+            b = bank if bank is not None else ds.device_bank(
+                max_gloss=self.cfg.get("device_bank_max_gloss"),
+                max_pinyin=self.cfg.get("device_bank_max_pinyin"))
+            return {k: b[k] for k in BANK_KEYS}
+
+        self.bank = None if bank is None and data is None else self._hold("bank", read_bank)
+        self._pinyin_list = self._vocoder = None  # read at the first test batch
 
     def build_model(self) -> DictTTS:
         c = self.cfg
@@ -109,8 +136,14 @@ class DictTTSTask(AdversarialTTSTask):
             self.disc = self._build_disc().to(self.device)
         self._build_optimizers()
 
-    def to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device) for k, v in batch.items()}
+    def train_batches(self):
+        return self.data.train_batches()
+
+    def val_batches(self):
+        return self.data.val_batches()
+
+    def test_batches(self):
+        return self.data.test_batches()
 
     def _dict_msg(self, batch: dict) -> DictMsg:
         """The device bank, un-gathered, with its int maps gathered by word id."""
@@ -145,3 +178,47 @@ class DictTTSTask(AdversarialTTSTask):
                          max_frames=self.cfg["max_frames"], noise=noise, generator=generator)
         return {"mel_out": out["mel_out"], "mel2word": out["mel2word"],
                 "pron_attn": out["pron_attn"], "pinyin_pred": pinyin_decode(out["pron_attn"], dm.pinyin)}
+
+    def after_test_step(self, batch_idx: int, batch: dict, out: dict) -> dict:
+        """Write each item's mel (``<work_dir>/generated/<item>.mel.npy``, cut
+        to its predicted frames) and, with ``vocoder_ckpt``, its wav; return
+        the meta.csv rows. ``batch`` is the host batch with its ``_meta``,
+        ``out`` the host arrays of ``test_step``."""
+        cfg = self.cfg
+        out_dir = os.path.join(cfg.get("work_dir") or "infer_out", "generated")
+        os.makedirs(out_dir, exist_ok=True)
+        if self._pinyin_list is None:
+            with open(os.path.join(cfg["binary_data_dir"], "pinyin_encoder.pkl"), "rb") as f:
+                self._pinyin_list = pickle.load(f)
+            if cfg.get("vocoder_ckpt"):
+                self._vocoder = load_vocoder(cfg, self.device)
+        rows = []
+        metas = batch.get("_meta") or [{}] * out["mel_out"].shape[0]
+        for b, meta in enumerate(metas):
+            name = meta.get("item_name", f"b{batch_idx}_{b}")
+            n = int((out["mel2word"][b] > 0).sum())
+            mel = out["mel_out"][b][:n]
+            np.save(os.path.join(out_dir, f"{name}.mel.npy"), mel)
+            wav_fn = os.path.join(out_dir, f"{name}.wav")
+            if self._vocoder is not None:
+                wav = spec2wav(self._vocoder, torch.as_tensor(mel, device=self.device))
+                save_wav(wav_fn, wav.cpu().numpy(), cfg.get("audio_sample_rate", 22050))
+            # two tokens per character, words 1..n-2 (BOS and EOS skipped)
+            n_words = int((np.asarray(batch["word_tokens"])[b] > 0).sum())
+            pinyin = " ".join(decode_pinyin_ids(out["pinyin_pred"][b], max(n_words - 2, 0),
+                                                self._pinyin_list))
+            txt = meta.get("txt", "").replace(",", "，").replace(".", "。")
+            rows.append([name, txt, pinyin, wav_fn, meta.get("wav_fn_gt", "")])
+        return {"rows": rows, "out_dir": out_dir}
+
+    def test_end(self, outputs: list) -> None:
+        """``meta.csv`` in the reference layout: header, then [row index,
+        item_name, text, pinyin_tokens, wav_fn_pred, wav_fn_gt]."""
+        if not outputs:
+            return
+        with open(os.path.join(outputs[0]["out_dir"], "meta.csv"), "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["", "item_name", "text", "pinyin_tokens", "wav_fn_pred", "wav_fn_gt"])
+            rows = [row for o in outputs for row in o["rows"]]
+            for i, row in enumerate(rows):
+                w.writerow([i, *row])

@@ -1,100 +1,208 @@
-"""Max-updates trainer: the task's train step over a stream of batches,
-validation every ``val_check_interval`` steps, rotated checkpoints and
-resume.
+"""Max-updates trainer: the task's train step over the provider's batches,
+sanity and periodic validation, rotated and best checkpoints, resume, and
+the test loop.
 
-Port of the single-device loop of ``dicttts_tpu/train/trainer.py``. Each
-step's randomness (dropout masks, the posterior noise, crop starts) comes
-from a ``torch.Generator`` seeded by (seed, step), so a resumed run draws
-what the uninterrupted run would have drawn. The device bank and other
-task constants are not checkpointed. Not ported: the scan grouping of
-steps, prefetch, the device mesh, best-checkpoint tracking and the
-TensorBoard writer.
+Port of the single-device loop of ``dicttts_tpu/train/trainer.py``:
+
+- ``fit(task)`` reads ``task.train_batches()`` through a prefetch thread,
+  starting it again at each epoch's end, validates on
+  ``num_sanity_val_steps`` batches before the first step (those count for
+  nothing), validates every ``val_check_interval`` steps on up to
+  ``eval_max_batches`` batches and saves; after the last step it validates
+  and saves once more unless that step just did. Validation means weight
+  each batch by its sentence count. The best checkpoint by
+  ``monitor_key`` / ``monitor_mode`` is kept beside the rotated ones, and
+  its value is read back on resume.
+- ``test(task)`` runs ``task.test_step`` over ``task.test_batches()`` from
+  the newest checkpoint, then the task's ``after_test_step`` / ``test_end``.
+
+Each step's randomness (dropout masks, the posterior noise, crop starts)
+comes from a ``torch.Generator`` seeded by (seed, step), so a resumed run
+draws what the uninterrupted run would have drawn. The JAX trainer's
+``steps_per_dispatch`` chains steps in one dispatch; here each step is
+launched on its own (the same math). Device constants (the bank, the frame
+cache) are not checkpointed. Not ported: the device mesh, multi-host runs,
+validation artifacts and the TensorBoard writer.
+
+Each train step appends a record to ``history``: the step, its sentences
+and mel frames (the batch's shape), the milliseconds the loop waited for
+the batch, and the step's milliseconds on the host clock. A step waits for
+the card once, at the NaN check of the generator loss before its optimizer
+updates, so its time holds the previous step's updates and not its own.
 
     trainer = Trainer(work_dir, max_updates=1000)          # device="cuda"
-    trainer.fit(task, train_batches, val_batches)
+    trainer.fit(task)
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import math
+import time
 from typing import Iterable
 
+import numpy as np
 import torch
 
 from dicttts_tpu_torch.serve import resolve_device
-from dicttts_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint, save_checkpoint
+from dicttts_tpu_torch.utils.checkpoint import (get_last_checkpoint, load_checkpoint, read_extras,
+                                                save_checkpoint)
+from dicttts_tpu_torch.utils.prefetch import prefetch_iterator
 
 log = logging.getLogger("dicttts_tpu_torch.trainer")
 
 
+def _host(batch: dict) -> dict:
+    """A batch without its host-only ``_meta``."""
+    return {k: v for k, v in batch.items() if k != "_meta"}
+
+
 class Trainer:
     def __init__(self, work_dir: str, max_updates: int = 1000, val_check_interval: int = 2000,
-                 num_ckpt_keep: int = 3, log_interval: int = 100, seed: int = 1234,
+                 num_sanity_val_steps: int = 5, num_ckpt_keep: int = 3, log_interval: int = 100,
+                 eval_max_batches: int = -1, monitor_key: str = "total_loss",
+                 monitor_mode: str = "min", save_best: bool = True, seed: int = 1234,
                  device="cuda"):
+        if monitor_mode not in ("min", "max"):
+            raise ValueError(f"monitor_mode must be 'min' or 'max', got {monitor_mode!r}")
         self.work_dir = work_dir
         self.max_updates = max_updates
         self.val_check_interval = val_check_interval
+        self.num_sanity_val_steps = num_sanity_val_steps
         self.num_ckpt_keep = num_ckpt_keep
         self.log_interval = log_interval
+        self.eval_max_batches = eval_max_batches
+        self.monitor_key = monitor_key
+        self.monitor_mode = monitor_mode
+        self.save_best = save_best
         self.seed = seed
         self.device = resolve_device(device)
         self.global_step = 0
+        self.best_val = math.inf if monitor_mode == "min" else -math.inf
         self.metrics: dict = {}  # the last train step's losses (device scalars)
         self.val_metrics: dict = {}
+        self.history: list[dict] = []  # one record per train step of this fit
+        self.test_seconds = 0.0  # the last test loop's wall time
 
     def step_generator(self, step: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + step)
 
-    def fit(self, task, train_batches: Iterable[dict], val_batches: Iterable[dict] = ()) -> None:
-        """Train ``task`` (a ``DictTTSTask`` on this trainer's device) to
-        ``max_updates``, resuming from the newest checkpoint in work_dir.
-        ``train_batches`` is iterated again from the start when it runs out."""
-        if task.device != self.device:
-            raise ValueError(f"task on {task.device}, trainer on {self.device}")
+    def _restore(self, task) -> None:
+        """Build the task's state; load the newest checkpoint, if any."""
         task.build_state(self.seed)
         last = get_last_checkpoint(self.work_dir)
         if last:
             self.global_step, state = load_checkpoint(last, map_location=self.device)
             task.load_state_dict(state)
-            log.info("resumed from %s @ step %d", last, self.global_step)
+            best = read_extras(last).get("best_val")
+            if best is not None:
+                self.best_val = float(best)
+            log.info("resumed from %s @ step %d (best_val=%s)", last, self.global_step, best)
+
+    def fit(self, task, train_batches: Iterable[dict] | None = None,
+            val_batches: Iterable[dict] | None = None) -> None:
+        """Train ``task`` (a ``DictTTSTask`` on this trainer's device) to
+        ``max_updates``, resuming from the newest checkpoint in work_dir.
+        The batches are the task's (``task.train_batches()``, read again
+        each epoch, and ``task.val_batches()``), or the iterables given
+        (train batches iterated again from the start when they run out; no
+        validation batches unless given)."""
+        if task.device != self.device:
+            raise ValueError(f"task on {task.device}, trainer on {self.device}")
+        if train_batches is None:
+            train, val = task.train_batches, task.val_batches
+        else:
+            train, val = (lambda: train_batches), (lambda: val_batches or ())
+        self._restore(task)
+        task.attach_device_frame_cache()
+        if self.num_sanity_val_steps > 0 and self.global_step == 0:
+            self.evaluate(task, val(), max_batches=self.num_sanity_val_steps, sanity=True)
         saved_at = self.global_step
         while self.global_step < self.max_updates:
             n_batches = 0
-            for batch in train_batches:
-                if self.global_step >= self.max_updates:
-                    break
-                n_batches += 1
-                self.metrics = task.train_step(task.to_device(batch),
-                                               self.step_generator(self.global_step))
-                self.global_step += 1
-                if self.global_step % self.log_interval == 0:
-                    log.info("step %d | %s", self.global_step,
-                             " ".join(f"{k}={float(v):.4f}" for k, v in self.metrics.items()))
-                if self.global_step % self.val_check_interval == 0:
-                    self.val_metrics = self.evaluate(task, val_batches)
-                    self.save(task)
-                    saved_at = self.global_step
+            with contextlib.closing(prefetch_iterator(train(), depth=8)) as batches:
+                while self.global_step < self.max_updates:
+                    t0 = time.perf_counter()
+                    batch = next(batches, None)
+                    if batch is None:
+                        break
+                    t1 = time.perf_counter()
+                    n_batches += 1
+                    self.metrics = task.train_step(task.to_device(_host(batch)),
+                                                   self.step_generator(self.global_step))
+                    self.global_step += 1
+                    self.history.append({
+                        "step": self.global_step, "sentences": int(np.shape(batch["word_tokens"])[0]),
+                        "frames": int(np.shape(batch["mel2word"])[1]), "wait_ms": (t1 - t0) * 1e3,
+                        "step_ms": (time.perf_counter() - t1) * 1e3})
+                    if self.global_step % self.log_interval == 0:
+                        log.info("step %d | %s", self.global_step,
+                                 " ".join(f"{k}={float(v):.4f}" for k, v in self.metrics.items()))
+                    if self.global_step % self.val_check_interval == 0:
+                        self.save(task, self.evaluate(task, val()))
+                        saved_at = self.global_step
             if n_batches == 0:
                 raise ValueError(f"train_batches yielded nothing at step {self.global_step}")
         if saved_at != self.global_step:
-            self.save(task)
+            self.save(task, self.evaluate(task, val()))
 
-    def evaluate(self, task, val_batches: Iterable[dict]) -> dict:
-        """Validation losses, each batch weighted by its sentence count."""
+    def evaluate(self, task, val_batches: Iterable[dict], max_batches: int | None = None,
+                 sanity: bool = False) -> dict:
+        """Validation losses over up to ``max_batches`` batches
+        (``eval_max_batches`` if None; <= 0: all), each batch weighted by its
+        sentence count. Batch i draws from a generator seeded by (seed, i),
+        so two validations of one state agree."""
+        max_batches = self.eval_max_batches if max_batches is None else max_batches
+        results = []
+        for i, batch in enumerate(val_batches):
+            if 0 < max_batches <= i:
+                break
+            batch = task.to_device(_host(batch))
+            gen = torch.Generator(device=self.device).manual_seed(self.seed + i)
+            results.append((task.val_step(batch, gen), batch["word_tokens"].shape[0]))
         sums: dict = {}
         count = 0
-        for i, batch in enumerate(val_batches):
-            batch = task.to_device(batch)
-            n = batch["word_tokens"].shape[0]
-            gen = torch.Generator(device=self.device).manual_seed(self.seed + i)
-            for k, v in task.val_step(batch, gen).items():
+        for metrics, n in results:  # one host read per value, after every batch is queued
+            for k, v in metrics.items():
                 sums[k] = sums.get(k, 0.0) + float(v) * n
             count += n
         means = {k: v / max(count, 1) for k, v in sums.items()}
-        if means:
-            log.info("validation @ %d: %s", self.global_step, means)
+        log.info("%s @ %d: %s", "sanity validation" if sanity else "validation", self.global_step,
+                 means)
+        if not sanity:
+            self.val_metrics = means
         return means
 
-    def save(self, task) -> str:
+    def save(self, task, val_metrics: dict) -> str:
+        """Save a checkpoint at the current step; with ``save_best``, also
+        the best one when ``val_metrics`` improve on the monitored value."""
+        monitored = val_metrics.get(self.monitor_key, val_metrics.get("total_loss", math.nan))
+        better = (monitored < self.best_val if self.monitor_mode == "min"
+                  else monitored > self.best_val)
+        if better:
+            self.best_val = monitored
         return save_checkpoint(self.work_dir, self.global_step, task.state_dict(),
-                               keep=self.num_ckpt_keep)
+                               keep=self.num_ckpt_keep, is_best=self.save_best and better,
+                               extra={"best_val": float(self.best_val)})
+
+    @torch.no_grad()
+    def test(self, task) -> list:
+        """The task's test loop from the newest checkpoint: per batch,
+        ``task.after_test_step(i, host batch, host outputs)``; then
+        ``task.test_end``. Returns the per-batch results."""
+        if task.device != self.device:
+            raise ValueError(f"task on {task.device}, trainer on {self.device}")
+        self._restore(task)
+        if self.global_step == 0:
+            log.warning("no checkpoint in %r: testing the initial weights", self.work_dir)
+        outputs = []
+        t = time.perf_counter()
+        for i, batch in enumerate(task.test_batches()):
+            gen = torch.Generator(device=self.device).manual_seed(self.seed + 1 + i)
+            out = task.test_step(task.to_device(_host(batch)), gen)
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            outputs.append(task.after_test_step(i, batch, out))
+        task.test_end(outputs)
+        self.test_seconds = time.perf_counter() - t
+        return outputs

@@ -109,7 +109,7 @@ def _batch(seed, B=2, Tw=8, T=96):
 
 def test_task_trains_on_a_numpy_bf16_bank():
     bank = _np_bank(0)
-    task = DictTTSTask(CFG, bank, device="cpu")
+    task = DictTTSTask(CFG, bank=bank, device="cpu")
     assert task.bank["keys"].dtype == torch.bfloat16  # not upcast to f32
     np.testing.assert_array_equal(task.bank["keys"].float().numpy(), bank["keys"].astype(np.float32))
     task.build_state(0)

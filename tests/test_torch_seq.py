@@ -1,6 +1,7 @@
-"""Port parity: dicttts_tpu_torch.ops.seq against dicttts_tpu.ops.seq and
-data.collate.shape_bucket. Integer maps must agree exactly; the float
-gather is a copy, so it must agree exactly too."""
+"""Port parity: dicttts_tpu_torch.ops.seq against dicttts_tpu.ops.seq, and
+the port's data.collate.shape_bucket against the JAX package's. Integer
+maps must agree exactly; the float gather is a copy, so it must agree
+exactly too."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,6 +10,7 @@ import torch
 
 from dicttts_tpu.data.collate import shape_bucket as jax_shape_bucket
 from dicttts_tpu.ops import seq as jseq
+from dicttts_tpu_torch.data.collate import shape_bucket
 from dicttts_tpu_torch.ops import seq as tseq
 
 
@@ -73,4 +75,4 @@ def test_gather_expand_and_sequence_mask():
     (5, 32, (16, 32)), (20, 32, (16, 32)), (40, 32, (16, 32)),
 ])
 def test_shape_bucket(length, multiple, buckets):
-    assert tseq.shape_bucket(length, multiple, buckets) == jax_shape_bucket(length, multiple, buckets)
+    assert shape_bucket(length, multiple, buckets) == jax_shape_bucket(length, multiple, buckets)

@@ -28,9 +28,9 @@ from dicttts_tpu.ops import s2pa_pallas
 from dicttts_tpu.train.tasks.dict_tts import DictTTSTask
 from dicttts_tpu.vocoders.hifigan import HifiGanVocoder
 from dicttts_tpu_torch.convert import load_jax_params
+from dicttts_tpu_torch.data.collate import shape_bucket
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
-from dicttts_tpu_torch.ops.seq import shape_bucket
 from dicttts_tpu_torch.serve import DictTTSServer, Request
 
 V, L, E, P, PINYIN, MAX_FRAMES, LATENT = 40, 10, 32, 6, 30, 96, 4

@@ -115,7 +115,7 @@ def _starts(u, lengths):
 
 
 def _ported_task(params_g, params_d, bank, **cfg):
-    task = DictTTSTask({**CFG, "disc_dropout": 0.0, **cfg}, bank, device="cpu")
+    task = DictTTSTask({**CFG, "disc_dropout": 0.0, **cfg}, bank=bank, device="cpu")
     task.build_state(0)
     load_jax_params(task.model, params_g)
     load_jax_params(task.disc, params_d)
@@ -183,7 +183,7 @@ def test_optimizer_rule_matches_optax():
     and below the clip), give optax's params. Short warmup and a large
     disc lr so the steps move the params."""
     cfg = dict(warmup_updates=1, disc_lr=0.05)
-    task = DictTTSTask({**CFG, **cfg}, _bank(0), device="cpu")
+    task = DictTTSTask({**CFG, **cfg}, bank=_bank(0), device="cpu")
     task.build_state(1)
     jt = JTask({**CFG, **cfg}, None)
     for module, opt, tx, norm_key, sched in (
@@ -221,7 +221,7 @@ def _assert_same(a, b, prefix):
 
 
 def test_disc_gating_leaves_the_disc_and_its_optimizer_untouched():
-    task = DictTTSTask({**CFG, "disc_start_steps": 1, "disc_interval": 2}, _bank(0), device="cpu")
+    task = DictTTSTask({**CFG, "disc_start_steps": 1, "disc_interval": 2}, bank=_bank(0), device="cpu")
     task.build_state(2)
     batch = task.to_device(_batch(3))
     before = _state_copy(task)
@@ -239,7 +239,7 @@ def test_disc_gating_leaves_the_disc_and_its_optimizer_untouched():
 
 
 def test_nan_loss_skips_the_generator_update():
-    task = DictTTSTask({**CFG, "disc_start_steps": 5}, _bank(0), device="cpu")
+    task = DictTTSTask({**CFG, "disc_start_steps": 5}, bank=_bank(0), device="cpu")
     task.build_state(3)
     batch = _batch(4)
     batch["mels"][0, 3, 5] = np.nan
@@ -256,7 +256,7 @@ def test_trainer_checkpoints_and_resumes_exactly(tmp_path):
     batches = [_batch(s) for s in (5, 6)]
 
     def run(work_dir, max_updates):
-        task = DictTTSTask(dict(CFG, dropout=0.1, predictor_dropout=0.2), bank, device="cpu")
+        task = DictTTSTask(dict(CFG, dropout=0.1, predictor_dropout=0.2), bank=bank, device="cpu")
         Trainer(str(work_dir), max_updates=max_updates, val_check_interval=1, num_ckpt_keep=2,
                 device="cpu").fit(task, batches, [batches[0]])
         return task
@@ -280,7 +280,7 @@ def test_trainer_checkpoints_and_resumes_exactly(tmp_path):
 def test_test_step_matches_the_serving_path():
     """The task's inference step is the serving slice's acoustic pass."""
     bank, batch = _bank(0), _batch(7)
-    task = DictTTSTask(dict(CFG, max_frames=96), bank, device="cpu")
+    task = DictTTSTask(dict(CFG, max_frames=96), bank=bank, device="cpu")
     task.build_state(4)
     noise = torch.randn((B, 96 // 4, CFG["latent_size"]), generator=torch.Generator().manual_seed(0))
     out = task.test_step(task.to_device(batch), noise=noise)
