@@ -54,17 +54,33 @@ Phases, each announced on its own line:
     word ids. It prints the step ms by batch shape and mel bucket, the
     host's wait for batches, the bank's and the frame cache's bytes and
     upload seconds, peak memory and ms per test utterance.
+ 9. on phase 8's directory: (a) Chinese text -> wav through the port's
+    DictTTSInferencer (the recipe's config, the repo's dictionary, phase
+    8's newest checkpoint and stand-in dict_embed, a seeded vocoder at the
+    recipe's HiFi-GAN widths) on the 50 PER test sentences
+    (data/per_test_set.json): one sentence written to a wav and read back,
+    then 8 calls at B=1 and the 50 in batches of 16, with eager S2PA (the
+    recipe) and with use_pallas_s2pa (K3 once per call, eager never); the
+    two runs' frame counts and pinyin equal and their mels close; per-stage
+    ms, RTF, the bf16 vocoder's time and deviation, and K3 alone at the
+    inferencer's own shape. Tone sandhi runs through jieba where it
+    imports, else from the committed overrides of those sentences
+    (tests/sandhi_per_test_set.json); the route is printed. (b) run.main on
+    the corpus with per-utterance gathered banks (use_device_dict_bank
+    false) for 4 steps: finite losses, K1/K2 never launched, step ms by
+    batch shape beside phase 8's.
 
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b and 8 remove.
+temporary directories that phases 7b, 8 and 9 remove.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import csv
 import faulthandler
@@ -166,21 +182,34 @@ def time_ms_cold(fn, iters: int = 20, warmup: int = 3) -> float:
     return sum(a.elapsed_time(b) for a, b in events) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, cold: bool = False) -> float:
     """Mean device time of fn()'s kernels per call, summed by torch.profiler:
-    for index preparation made of a few small kernels, where CUDA events
-    around each call would count the host's launch gaps."""
+    for index preparation made of a few small kernels, and for kernels
+    shorter than their wrapper's host time, where CUDA events around each
+    call would count the host's launch gaps. ``cold``: L2 flushed (a 128 MB
+    write) before each call; the flush's own kernels are left out of the sum."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+
+    def kernels(body):
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    return sum(e.self_device_time_total for e in events) / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            body()
+            torch.cuda.synchronize()
+        return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    skip = {e.key for e in kernels(flush.zero_)} if cold else set()
+    fn()
+
+    def run():
+        for _ in range(iters):
+            if cold:
+                flush.zero_()
+            fn()
+
+    return sum(e.self_device_time_total for e in kernels(run) if e.key not in skip) / iters / 1e3
 
 
 def word_ids(gen, N, ids):
@@ -336,16 +365,18 @@ def check_fused_kernel(device, gen):
         raise AssertionError("K3 disagrees with its plain version")
     ms = time_ms(lambda: s2pa_fused(*args))
     plain_ms = time_ms(lambda: s2pa_fused_plain(*args))
+    cold_ms = device_ms(lambda: s2pa_fused(*args), cold=True)
     N = B * T
     n_bytes = 4 * (N * H + 2 * N * L * H + N * L + N * P  # in: q, k, v, key_map, pinyin_map
                    + N * H + N * L + N * P)  # out: ctx, w, pron
     bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * H + 2.0 * N * L * P, "float32")
-    say(f"K3: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}; {n_bytes / 1e6:.1f} MB)")
+    say(f"K3: kernel {ms:.4f} ms (events around back-to-back calls; its device time with L2 flushed "
+        f"{cold_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{n_bytes / 1e6:.1f} MB)")
     return {"name": "s2pa_fused", "route": "cuda", "source": "dicttts_tpu_torch/csrc/s2pa_fused.cu",
             "replaces": "dicttts_tpu/ops/s2pa_pallas.py:104", "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+            "ms": ms, "device_ms_cold": cold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 def check_bank_autograd(args):
@@ -674,7 +705,9 @@ def standin_bank(binary, rng):
     for every word id, gloss keys of 1-56 tokens (mean ~19, as the
     corpus's 494 MB file has; so L buckets to 64) by 768 in float16, 1-3
     senses over contiguous gloss tokens, two pinyin tokens a sense drawn
-    from pinyin_encoder.pkl. Only what device_bank reads."""
+    from pinyin_encoder.pkl, and the value: the key itself, as in the
+    corpus's file (one array, pickled once). Only what device_bank and the
+    gathered banks read."""
     from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
 
     with open(os.path.join(binary, "pinyin_encoder.pkl"), "rb") as f:
@@ -687,7 +720,8 @@ def standin_bank(binary, rng):
     with IndexedDatasetBuilder(os.path.join(binary, "dict_embed")) as b:
         for i in range(V):
             n, ns = lens[i], rng.randint(1, 4)
-            b.add_item({"key": keys[offsets[i]:offsets[i + 1]],
+            key = keys[offsets[i]:offsets[i + 1]]
+            b.add_item({"key": key, "value": key,
                         "key_map": np.arange(n) * ns // n + 1,
                         "pinyin": [pinyin[j] for j in rng.randint(2, len(pinyin), 2 * ns)],
                         "pinyin_map": np.repeat(np.arange(1, ns + 1), 2)})
@@ -755,10 +789,22 @@ def recipe_bank_case(task, gen):
     return (bank, wt, qe, km, mask), g_ctx, g_w, tuple(batch["word_tokens"].shape)
 
 
-def recipe_entry_point(gen, smi):
+@contextlib.contextmanager
+def in_dir(path):
+    """Run in ``path`` (run.py's work_dir is checkpoints/<exp_name> under the
+    current directory), then return to where we were."""
+    cwd = os.getcwd()
+    os.chdir(path)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def recipe_entry_point(gen, smi, root):
     """Phase 8: train, resume and infer through dicttts_tpu_torch.run.main on
-    the corpus. Returns (corpus, launches by run, the K1/K2 case at the
-    recipe's shapes, the report)."""
+    the corpus, in ``root``. Returns (corpus, launches by run, the K1/K2 case
+    at the recipe's shapes, the report)."""
     from dicttts_tpu_torch import run
     from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
     from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
@@ -768,88 +814,83 @@ def recipe_entry_point(gen, smi):
         return s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, s2pa_fused.launches
 
     report, launches = {}, {}
-    cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
-        binary = os.path.join(root, "binary")
-        os.makedirs(binary)
+    binary = os.path.join(root, "binary")
+    os.makedirs(binary)
+    t = time.time()
+    corpus = prepare_corpus(binary, np.random.RandomState(SEED))
+    say(f"corpus ready in {time.time() - t:.1f} s")
+    base = ["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", "recipe", "--device", "cuda"]
+    work_dir = os.path.join(root, "checkpoints", "recipe")
+    with in_dir(root):
+        hp = (f"binary_data_dir={binary},max_updates={RECIPE_STEPS},"
+              f"val_check_interval={RECIPE_STEPS // 2},num_sanity_val_steps=1")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
         t = time.time()
-        corpus = prepare_corpus(binary, np.random.RandomState(SEED))
-        say(f"corpus ready in {time.time() - t:.1f} s")
-        base = ["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", "recipe", "--device", "cuda"]
-        work_dir = os.path.join(root, "checkpoints", "recipe")
-        os.chdir(root)  # run.py's work_dir is checkpoints/<exp_name> under the current directory
-        try:
-            hp = (f"binary_data_dir={binary},max_updates={RECIPE_STEPS},"
-                  f"val_check_interval={RECIPE_STEPS // 2},num_sanity_val_steps=1")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
-            t = time.time()
-            trainer, task = run.main(base + ["--hparams", hp])
-            torch.cuda.synchronize()
-            launches["recipe_train"] = counts()
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-            say(f"run.main trained {trainer.global_step} steps in {time.time() - t:.1f} s (the bank's and "
-                f"the cache's build, validations and checkpoints included); peak memory {peak:.2f} GiB; on {smi}")
-            c = task.cfg
-            say(f"recipe widths: hidden {c['hidden_size']}, dict_embed_dim {c['dict_embed_dim']}, word_size "
-                f"{c['word_size']}, value_embedding_size {c['value_embedding_size']}, max_tokens {c['max_tokens']}, "
-                f"max_sentences {c['max_sentences']}, mel_buckets {c['mel_buckets']}, frame cache "
-                f"{c['use_device_frame_cache']}, bank {tuple(task.bank['keys'].shape)} {task.bank['keys'].dtype}")
-            for name, u in task.uploads.items():
-                say(f"{name}: {u['bytes']} bytes ({u['bytes'] / 1e6:.1f} MB), built on the host in "
-                    f"{u['build_s']:.2f} s, uploaded in {u['upload_s']:.3f} s; on {smi}")
-            report = {"corpus": corpus, "peak_gib": peak, "uploads": task.uploads,
-                      "train": step_report(trainer.history, "train", smi)}
-            vals = {k: float(v) for k, v in trainer.metrics.items()}
-            say(f"last step: {vals}; validation: {trainer.val_metrics}")
-            finite = all(math.isfinite(v) for v in (*vals.values(), *trainer.val_metrics.values()))
-            finite = finite and all(bool(torch.isfinite(p).all()) for p in task.model.parameters())
-            names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
-            say(f"launches in the run (K1, K2, K3): {launches['recipe_train']}; checkpoints {names}, "
-                f"best {os.path.exists(os.path.join(work_dir, BEST))}")
-            if not (trainer.global_step == RECIPE_STEPS and finite and "grad_norm_g" in vals):
-                raise AssertionError(f"the recipe's run did not train {RECIPE_STEPS} finite steps")
-            want = [f"model_ckpt_steps_{RECIPE_STEPS}.ckpt", f"model_ckpt_steps_{RECIPE_STEPS // 2}.ckpt"]
-            if names[:2] != want or not os.path.exists(os.path.join(work_dir, BEST)):
-                raise AssertionError(f"missing checkpoints: {names}")
-            k1, k2, k3 = launches["recipe_train"]
-            if not (k2 == RECIPE_STEPS and k1 > RECIPE_STEPS and k3 == 0):
-                raise AssertionError(f"K1/K2 not launched every step (K1 {k1}, K2 {k2}, K3 {k3})")
-            args, g_ctx, g_w, shape = recipe_bank_case(task, gen)
-            del trainer, task
-            torch.cuda.empty_cache()
+        trainer, task = run.main(base + ["--hparams", hp])
+        torch.cuda.synchronize()
+        launches["recipe_train"] = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        say(f"run.main trained {trainer.global_step} steps in {time.time() - t:.1f} s (the bank's and "
+            f"the cache's build, validations and checkpoints included); peak memory {peak:.2f} GiB; on {smi}")
+        c = task.cfg
+        say(f"recipe widths: hidden {c['hidden_size']}, dict_embed_dim {c['dict_embed_dim']}, word_size "
+            f"{c['word_size']}, value_embedding_size {c['value_embedding_size']}, max_tokens {c['max_tokens']}, "
+            f"max_sentences {c['max_sentences']}, mel_buckets {c['mel_buckets']}, frame cache "
+            f"{c['use_device_frame_cache']}, bank {tuple(task.bank['keys'].shape)} {task.bank['keys'].dtype}")
+        for name, u in task.uploads.items():
+            say(f"{name}: {u['bytes']} bytes ({u['bytes'] / 1e6:.1f} MB), built on the host in "
+                f"{u['build_s']:.2f} s, uploaded in {u['upload_s']:.3f} s; on {smi}")
+        report = {"corpus": corpus, "peak_gib": peak, "uploads": task.uploads,
+                  "train": step_report(trainer.history, "train", smi)}
+        vals = {k: float(v) for k, v in trainer.metrics.items()}
+        say(f"last step: {vals}; validation: {trainer.val_metrics}")
+        finite = all(math.isfinite(v) for v in (*vals.values(), *trainer.val_metrics.values()))
+        finite = finite and all(bool(torch.isfinite(p).all()) for p in task.model.parameters())
+        names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
+        say(f"launches in the run (K1, K2, K3): {launches['recipe_train']}; checkpoints {names}, "
+            f"best {os.path.exists(os.path.join(work_dir, BEST))}")
+        if not (trainer.global_step == RECIPE_STEPS and finite and "grad_norm_g" in vals):
+            raise AssertionError(f"the recipe's run did not train {RECIPE_STEPS} finite steps")
+        want = [f"model_ckpt_steps_{RECIPE_STEPS}.ckpt", f"model_ckpt_steps_{RECIPE_STEPS // 2}.ckpt"]
+        if names[:2] != want or not os.path.exists(os.path.join(work_dir, BEST)):
+            raise AssertionError(f"missing checkpoints: {names}")
+        k1, k2, k3 = launches["recipe_train"]
+        if not (k2 == RECIPE_STEPS and k1 > RECIPE_STEPS and k3 == 0):
+            raise AssertionError(f"K1/K2 not launched every step (K1 {k1}, K2 {k2}, K3 {k3})")
+        args, g_ctx, g_w, shape = recipe_bank_case(task, gen)
+        del trainer, task
+        torch.cuda.empty_cache()
 
-            s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
-            trainer, task = run.main(base + ["--hparams", f"max_updates={RECIPE_STEPS + RESUME_STEPS}"])
-            torch.cuda.synchronize()
-            launches["recipe_resume"] = counts()
-            names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
-            say(f"resumed at step {RECIPE_STEPS}, trained to {trainer.global_step}: checkpoints {names}, "
-                f"launches (K1, K2, K3) {launches['recipe_resume']}")
-            report["resume"] = step_report(trainer.history, "resume", smi)
-            if not ([h["step"] for h in trainer.history] == [RECIPE_STEPS + 1, RECIPE_STEPS + 2]
-                    and names[0] == f"model_ckpt_steps_{RECIPE_STEPS + RESUME_STEPS}.ckpt"
-                    and launches["recipe_resume"][1] == RESUME_STEPS):
-                raise AssertionError("the resumed run did not continue from its checkpoint")
-            del trainer, task
+        s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+        trainer, task = run.main(base + ["--hparams", f"max_updates={RECIPE_STEPS + RESUME_STEPS}"])
+        torch.cuda.synchronize()
+        launches["recipe_resume"] = counts()
+        names = [os.path.basename(p) for p in get_all_ckpts(work_dir)]
+        say(f"resumed at step {RECIPE_STEPS}, trained to {trainer.global_step}: checkpoints {names}, "
+            f"launches (K1, K2, K3) {launches['recipe_resume']}")
+        report["resume"] = step_report(trainer.history, "resume", smi)
+        if not ([h["step"] for h in trainer.history] == [RECIPE_STEPS + 1, RECIPE_STEPS + 2]
+                and names[0] == f"model_ckpt_steps_{RECIPE_STEPS + RESUME_STEPS}.ckpt"
+                and launches["recipe_resume"][1] == RESUME_STEPS):
+            raise AssertionError("the resumed run did not continue from its checkpoint")
+        del trainer, task
 
-            s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
-            trainer, task = run.main(base + ["--infer"])
-            torch.cuda.synchronize()
-            launches["recipe_infer"] = counts()
-            n_test = CORPUS_SPLITS["test"]
-            report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
-            say(f"--infer: {n_test} test utterances in {trainer.test_seconds:.2f} s, "
-                f"{report['test_ms_per_utterance']:.2f} ms per utterance (batches of 1, max_frames "
-                f"{task.cfg['max_frames']}, mel and meta.csv writes included); launches (K1, K2, K3) "
-                f"{launches['recipe_infer']}; on {smi}")
-            check_meta(os.path.join(work_dir, "generated"), binary, n_test)
-            if launches["recipe_infer"] != (n_test, 0, 0):
-                raise AssertionError(f"--infer launched {launches['recipe_infer']}, not K1 once a batch")
-            del trainer, task
-        finally:
-            os.chdir(cwd)
+        s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+        trainer, task = run.main(base + ["--infer"])
+        torch.cuda.synchronize()
+        launches["recipe_infer"] = counts()
+        n_test = CORPUS_SPLITS["test"]
+        report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
+        say(f"--infer: {n_test} test utterances in {trainer.test_seconds:.2f} s, "
+            f"{report['test_ms_per_utterance']:.2f} ms per utterance (batches of 1, max_frames "
+            f"{task.cfg['max_frames']}, mel and meta.csv writes included); launches (K1, K2, K3) "
+            f"{launches['recipe_infer']}; on {smi}")
+        check_meta(os.path.join(work_dir, "generated"), binary, n_test)
+        if launches["recipe_infer"] != (n_test, 0, 0):
+            raise AssertionError(f"--infer launched {launches['recipe_infer']}, not K1 once a batch")
+        del trainer, task
     torch.cuda.empty_cache()
     return corpus, launches, (args, g_ctx, g_w, shape), report
 
@@ -870,6 +911,271 @@ def check_meta(gen_dir, binary, n_test):
     say(f"meta.csv: {len(rows) - 1} rows; first: {rows[1][:4] if len(rows) > 1 else None}")
     if rows[0] != header or len(rows) != n_test + 1 or bad:
         raise AssertionError(f"meta.csv is not the JAX layout with {n_test} rows (bad rows {bad})")
+
+
+def per_sentences():
+    with open(os.path.join(REPO, "data", "per_test_set.json"), encoding="utf-8") as f:
+        return [d["text"] for d in json.load(f)]
+
+
+def sandhi_route():
+    """("jieba", None) where jieba imports (the inferencer's own
+    SandhiProcessor runs), else ("fixture", FixedSandhi) with the committed
+    overrides of the PER sentences (tests/sandhi_per_test_set.json, which
+    tests/test_torch_text.py holds to the JAX engine)."""
+    from dicttts_tpu_torch.infer import FixedSandhi
+
+    try:
+        import jieba  # noqa: F401
+        return "jieba", None
+    except ImportError:
+        with open(os.path.join(REPO, "tests", "sandhi_per_test_set.json"), encoding="utf-8") as f:
+            return "fixture", FixedSandhi(json.load(f))
+
+
+def text_cfg(root, binary, work_dir):
+    """The recipe's config as phase 8 saved it, with the repo's dictionary
+    (a stand-in with no entries where the checkout has none: the front end
+    then reads no dictionary), per-stage timers on, no vocoder checkpoint."""
+    from dicttts_tpu_torch.config import load_config
+    from dicttts_tpu_torch.run import autoconfigure_vocabs
+
+    dict_path = os.path.join(REPO, ".prod_corpus", "zh-dict.json")
+    if not os.path.exists(dict_path):
+        dict_path = os.path.join(root, "zh-dict.json")
+        with open(dict_path, "w") as f:
+            f.write("{}")
+        say("dictionary: the checkout has no .prod_corpus/zh-dict.json; an empty stand-in")
+    with in_dir(root):
+        cfg = load_config(config=os.path.join(REPO, RECIPE_CONFIG), exp_name="recipe", infer=True)
+    cfg = autoconfigure_vocabs(dict(cfg, binary_data_dir=binary))
+    return dict(cfg, binary_data_dir=binary, dict_path=dict_path, work_dir=work_dir, profile_infer=True,
+                vocoder_ckpt="")
+
+
+def sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def empty_cache(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def synth_run(inf, texts, batch, seed0):
+    """synthesize_batch over ``texts`` in batches of ``batch``: per-sentence
+    results, seconds (host clock, each call ends with its host copies) and
+    the stage totals of Timer."""
+    from dicttts_tpu_torch.eval.metrics import Timer
+
+    Timer.totals = {}
+    out, secs = [], 0.0
+    for i in range(0, len(texts), batch):
+        sync(inf.device)
+        t = time.perf_counter()
+        out += inf.synthesize_batch(texts[i:i + batch], seed=seed0 + i)
+        secs += time.perf_counter() - t
+    return out, secs, dict(Timer.totals)
+
+
+def check_wavs(results, texts, hop):
+    for (wav, info), text in zip(results, texts):
+        n = info["n_frames"]
+        if not (0 < n and wav.shape == (n * hop,) and info["mel"].shape == (n, 80)):
+            raise AssertionError(f"{text}: wav {wav.shape} for {n} frames")
+        if not (np.isfinite(wav).all() and np.isfinite(info["mel"]).all() and np.abs(wav).max() > 1e-4):
+            raise AssertionError(f"{text}: non-finite or silent output")
+        if len(info["pinyin"]) != len(info["text"]):
+            raise AssertionError(f"{text}: {len(info['pinyin'])} syllables for {len(info['text'])} characters")
+
+
+def text_to_wav(root, binary, work_dir, smi, device="cuda"):
+    """Phase 9a: DictTTSInferencer, text -> wav at the recipe's width on
+    phase 8's newest checkpoint, eager S2PA (the recipe) and K3. Returns the
+    K3 record at the inferencer's shape, K3's launches and the report."""
+    import dicttts_tpu_torch.models.dict_encoder as dict_encoder
+    from dicttts_tpu_torch.infer import DictTTSInferencer
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
+    from dicttts_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
+    from dicttts_tpu_torch.vocoders.hifigan import HifiGanVocoder, load_wav, spec2wav
+
+    route, sandhi = sandhi_route()
+    say(f'sandhi route: {json.dumps({"sandhi": route})}')
+    texts = per_sentences()
+    cfg = text_cfg(root, binary, work_dir)
+    sr, n_b1 = cfg["audio_sample_rate"], 8
+    ckpt = get_last_checkpoint(work_dir)
+    saved = load_checkpoint(ckpt, map_location=device)[1]["params_g"]
+    runs, report, k3_inputs = {}, {"sandhi": route}, []
+    for use_pallas in (False, True):
+        mode = "k3" if use_pallas else "eager"
+        t = time.perf_counter()
+        inf = DictTTSInferencer(dict(cfg, use_pallas_s2pa=use_pallas), device=device, sandhi=sandhi)
+        say(f"{mode}: inferencer built in {time.perf_counter() - t:.2f} s from {os.path.basename(ckpt)}; "
+            f"vocoder {type(inf.vocoder).__name__} (seeded init, upsample_initial_channel "
+            f"{inf.vocoder.generator.conv_pre.out_channels}, hop {inf.vocoder.hop})")
+        state = inf.task.model.state_dict()
+        if not all(torch.equal(state[k], v) for k, v in saved.items()):
+            raise AssertionError("the inferencer did not restore phase 8's newest checkpoint")
+        if not use_pallas:  # one sentence to a file, read back
+            path = os.path.join(root, "one.wav")
+            wav, info = inf.synthesize(texts[0], seed=0, out_wav=path)
+            back, back_sr = load_wav(path)
+            d = float(np.abs(back - np.clip(wav, -1, 1)).max())
+            say(f"synthesize({texts[0]!r}) -> {path}: {info['n_frames']} frames, pinyin "
+                f"{' '.join(info['pinyin'][:6])} ..., read back {back.shape[0]} samples at {back_sr} Hz, "
+                f"max|d| {d:.2e} (tol 1e-4: 16-bit PCM, written at 32767 and read at 32768 a unit)")
+            check_wavs([(wav, info)], texts[:1], inf.vocoder.hop)
+            if back_sr != sr or back.shape != wav.shape or d > 1e-4:
+                raise AssertionError("the written wav does not read back")
+        synth_run(inf, texts[:n_b1], 1, 0)  # warm-up: every shape the timed runs meet
+        synth_run(inf, texts, 16, 1000)
+        s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+        b1, b1_s, b1_stages = synth_run(inf, texts[:n_b1], 1, 0)
+        k3_b1 = s2pa_fused.launches
+        s2pa_fused.launches = 0
+        if use_pallas:  # the B=16 batches' K3 inputs, for K3 alone below
+            def capture(*args):
+                k3_inputs.append(args)
+                return s2pa_fused(*args)
+            dict_encoder.s2pa_fused = capture
+        try:
+            b16, b16_s, b16_stages = synth_run(inf, texts, 16, 1000)
+        finally:
+            dict_encoder.s2pa_fused = s2pa_fused
+        n_batches = -(-len(texts) // 16)
+        launches = (s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, k3_b1, s2pa_fused.launches)
+        say(f"{mode}: launches K1 {launches[0]}, K2 {launches[1]}, K3 {k3_b1} over {n_b1} calls at B=1 and "
+            f"{launches[3]} over {n_batches} calls at B=16")
+        want = n_b1 if use_pallas else 0, n_batches if use_pallas else 0
+        if launches[:2] != (0, 0) or (launches[2], launches[3]) != want:
+            raise AssertionError(f"{mode}: expected K3 {want} and no K1/K2, got {launches}")
+        check_wavs(b1, texts[:n_b1], inf.vocoder.hop)
+        check_wavs(b16, texts, inf.vocoder.hop)
+        rec = {"k3_launches": k3_b1 + launches[3]}
+        for name, res, secs, stages, n in (("B=1", b1, b1_s, b1_stages, n_b1),
+                                           ("B=16", b16, b16_s, b16_stages, n_batches)):
+            frames = sum(i["n_frames"] for _, i in res)
+            audio = frames * inf.vocoder.hop / sr
+            ms = {k: v * 1e3 / n for k, v in stages.items()}
+            rec[name] = {"calls": n, "sentences": len(res), "frames": frames, "audio_s": audio,
+                         "wall_ms_per_call": secs * 1e3 / n, "rtf": secs / audio, "stage_ms_per_call": ms}
+            say(f"{mode} {name}: {len(res)} sentences in {n} calls, {secs * 1e3 / n:.2f} ms per call, "
+                f"{frames} frames ({frames / sum(len(i['text']) for _, i in res):.2f} a character), audio "
+                f"{audio:.2f} s, RTF {secs / audio:.5f}; per call: front end {ms['front_end']:.2f} ms "
+                f"(normalization, sandhi, _bank_for, collate), acoustic {ms['acoustic']:.2f} ms, vocoder "
+                f"{ms['vocoder']:.2f} ms (f32); on {smi}")
+        runs[mode] = b16
+        report[mode] = rec
+        if not use_pallas:  # the bf16 vocoder against the f32 one on the B=16 mels
+            voc16 = HifiGanVocoder(dict(cfg, vocoder_infer_dtype="bfloat16"),
+                                   params=inf.vocoder.generator.state_dict(), device=device)
+            mels = [i["mel"] for _, i in b16[:16]]
+            batch = np.full((16, max(len(m) for m in mels), 80), -6.0, np.float32)
+            for j, m in enumerate(mels):
+                batch[j, :len(m)] = m
+            mel_t = torch.tensor(batch, device=device)
+            ms32 = time_ms(lambda: spec2wav(inf.vocoder.generator, mel_t), iters=5, warmup=1)
+            ms16 = time_ms(lambda: spec2wav(voc16.generator, mel_t), iters=5, warmup=1)
+            w32 = spec2wav(inf.vocoder.generator, mel_t)
+            w16 = spec2wav(voc16.generator, mel_t)
+            rel = float(torch.sqrt(torch.mean((w16 - w32) ** 2)) / torch.sqrt(torch.mean(w32 ** 2)))
+            report["vocoder_b16"] = {"frames": batch.shape[1], "f32_ms": ms32, "bf16_ms": ms16, "bf16_rms_rel": rel}
+            say(f"vocoder alone at B=16 x {batch.shape[1]} frames: f32 {ms32:.2f} ms, bf16 {ms16:.2f} ms; bf16 "
+                f"rms deviation {100 * rel:.2f} % of the f32 signal's rms (tol 5 %); on {smi}")
+            if not rel < 0.05:
+                raise AssertionError("the bf16 vocoder strays from the f32 one")
+            del voc16, w32, w16, mel_t
+        del inf
+        empty_cache(device)
+
+    worst, ties = 0.0, []
+    for text, (_, a), (_, b) in zip(texts, runs["eager"], runs["k3"]):
+        if a["n_frames"] != b["n_frames"]:
+            ties.append(text)
+            continue
+        if a["pinyin"] != b["pinyin"]:
+            raise AssertionError(f"{text}: pinyin differs between eager S2PA and K3")
+        worst = max(worst, float(np.abs(a["mel"] - b["mel"]).max()))
+    say(f"K3 vs eager S2PA over {len(texts)} sentences: n_frames and pinyin equal in "
+        f"{len(texts) - len(ties)}, max|dmel| {worst:.3e} (tol 1e-3: f32 with TF32 off; K3 projects k "
+        f"and v to H before the dot products, eager S2PA takes q to E, and the difference runs through "
+        f"the model)")
+    if ties:
+        raise AssertionError(f"frame counts differ between eager S2PA and K3 for {ties}")
+    if not worst <= 1e-3:
+        raise AssertionError("K3 and eager S2PA mels disagree")
+    report["k3_vs_eager_max_dmel"] = worst
+
+    args = tuple(a.contiguous() for a in k3_inputs[0])  # the first B=16 batch's own inputs
+    (B, T, H), L, P = args[0].shape, args[1].shape[2], args[4].shape[2]
+    out = s2pa_fused(*args)
+    ref = s2pa_fused_plain(*args)
+    err = max((x - y).abs().max().item() for x, y in zip(out, ref))
+    # the inputs (45 MB) fit in the 50 MB L2, and the wrapper's host time
+    # exceeds the kernel's: the kernel's own device time with L2 flushed
+    # before each call (profiler), and CUDA events around 20 back-to-back
+    # calls beside it, which count the host's launch gaps
+    ms = device_ms(lambda: s2pa_fused(*args), cold=True)
+    plain_ms = device_ms(lambda: s2pa_fused_plain(*args), cold=True)
+    event_ms = time_ms(lambda: s2pa_fused(*args))
+    N = B * T
+    n_bytes = 4 * (N * H + 2 * N * L * H + N * L + N * P + N * H + N * L + N * P)
+    bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * H + 2.0 * N * L * P, "float32")
+    say(f"K3 at the inferencer's shape B={B} Tw={T} L={L} H={H} P={P}: max abs err {err:.3e} (tol 1e-5), "
+        f"kernel {ms:.4f} ms of device time with L2 flushed (events around back-to-back calls: "
+        f"{event_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{n_bytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f} % of the bound; on {smi}")
+    if not err <= 1e-5:
+        raise AssertionError("K3 disagrees with its plain version at the inferencer's shape")
+    k3_case = {"case": f"text path B={B} Tw={T} L={L} H={H} P={P}", "max_abs_err": err, "ms": ms,
+               "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+    return k3_case, report["k3"]["k3_launches"], report
+
+
+def gathered_training(root, binary, smi, recipe_report, device="cuda"):
+    """Phase 9b: run.main on the corpus with per-utterance gathered banks
+    (use_device_dict_bank=False) for a few steps. Returns the report."""
+    from dicttts_tpu_torch import run
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
+
+    steps = 4
+    hp = (f"binary_data_dir={binary},use_device_dict_bank=False,max_updates={steps},"
+          f"val_check_interval={steps},num_sanity_val_steps=0")
+    with in_dir(root):
+        sync(device)
+        if device == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+        t = time.time()
+        trainer, task = run.main(["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", "gathered",
+                                  "--device", device, "--hparams", hp])
+        sync(device)
+    launches = (s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, s2pa_fused.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else float("nan")
+    vals = {k: float(v) for k, v in trainer.metrics.items()}
+    say(f"run.main on gathered banks: {trainer.global_step} steps in {time.time() - t:.1f} s (validation "
+        f"and checkpoint included), peak memory {peak:.2f} GiB; launches (K1, K2, K3) {launches}; device "
+        f"bank held: {task.bank is not None}; last step {vals}; validation {trainer.val_metrics}; on {smi}")
+    report = {"train": step_report(trainer.history, "gathered", smi), "peak_gib": peak, "launches": launches}
+    device_bank = {}
+    for shape, ms in recipe_report["train"]["step_ms"].items():
+        device_bank[shape] = ms
+    for shape, ms in report["train"]["step_ms"].items():
+        if shape in device_bank:
+            say(f"step ms at {shape}: gathered banks {' '.join(f'{x:.1f}' for x in ms)}; the device bank "
+                f"(phase 8) {' '.join(f'{x:.1f}' for x in device_bank[shape])}; on {smi}")
+    finite = all(math.isfinite(v) for v in (*vals.values(), *trainer.val_metrics.values()))
+    if not (trainer.global_step == steps and finite and task.bank is None):
+        raise AssertionError(f"gathered-bank training did not take {steps} finite steps")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"gathered-bank training launched K1/K2/K3 {launches}")
+    del trainer, task
+    empty_cache(device)
+    return report
 
 
 def main() -> int:
@@ -1025,14 +1331,29 @@ def main() -> int:
     del train_bank
     torch.cuda.empty_cache()
 
-    say(f"phase 8: the recipe's entry point (dicttts_tpu_torch.run) on the corpus, {RECIPE_CONFIG}")
-    corpus, recipe_launches, (args, g_ctx, g_w, shape), report = recipe_entry_point(gen, smi)
-    N = args[1].shape[0]
-    cases.append(check_bank_case(args, g_ctx, g_w, f"recipe bf16 L={args[0].shape[1]} N={N} "
-                                 f"(a corpus batch {shape[0]}x{shape[1]})", smi))
-    del args, g_ctx, g_w
-    say("phase 8 report " + json.dumps(report))
-    say(f"phase 8 done at {time.time() - T_START:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recipe_") as root:
+        say(f"phase 8: the recipe's entry point (dicttts_tpu_torch.run) on the corpus, {RECIPE_CONFIG}")
+        corpus, recipe_launches, (args, g_ctx, g_w, shape), report = recipe_entry_point(gen, smi, root)
+        N = args[1].shape[0]
+        cases.append(check_bank_case(args, g_ctx, g_w, f"recipe bf16 L={args[0].shape[1]} N={N} "
+                                     f"(a corpus batch {shape[0]}x{shape[1]})", smi))
+        del args, g_ctx, g_w
+        torch.cuda.empty_cache()
+        say("phase 8 report " + json.dumps(report))
+        say(f"phase 8 done at {time.time() - T_START:.1f} s")
+
+        binary, work_dir = os.path.join(root, "binary"), os.path.join(root, "checkpoints", "recipe")
+        say("phase 9a: Chinese text -> wav through DictTTSInferencer on phase 8's checkpoint, the PER "
+            "test sentences, eager S2PA (the recipe) and K3")
+        k3_text, k3_text_launches, text_report = text_to_wav(root, binary, work_dir, smi)
+        say("phase 9a report " + json.dumps(text_report))
+        say(f"phase 9a done at {time.time() - T_START:.1f} s")
+        say("phase 9b: run.main on the corpus with gathered banks (use_device_dict_bank=False)")
+        gathered_report = gathered_training(root, binary, smi, report)
+        say("phase 9b report " + json.dumps(gathered_report))
+        say(f"phase 9 done at {time.time() - T_START:.1f} s")
+    if os.path.exists(root):
+        raise AssertionError(f"{root} was not removed")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),
@@ -1053,8 +1374,15 @@ def main() -> int:
                         # K1's slot order (one torch.sort, shared with K2) is timed apart
                         **({"sort_ms": main_["sort_ms"]} if "sort_ms" in main_ else {}),
                         "main_case": main_case["case"], "cases": by_case})
-    k3["launches_by_path"] = {"gathered_serving": k3["launches"],
+    # K3's own path is the inferencer's: its numbers are taken at that shape
+    phase3 = {k: k3.pop(k) if k == "device_ms_cold" else k3[k]
+              for k in ("max_abs_err", "ms", "device_ms_cold", "plain_ms", "bound_ms", "bound_by")}
+    k3["launches_by_path"] = {"gathered_serving": k3["launches"], "text": k3_text_launches,
                               **{path: n[2] for path, n in recipe_launches.items()}}
+    k3.update({k: v for k, v in k3_text.items() if k != "case"})
+    k3.update(launches=sum(k3["launches_by_path"].values()), main_case=k3_text["case"],
+              max_abs_err=max(k3_text["max_abs_err"], phase3["max_abs_err"]),
+              cases=[{"case": "synthetic B=16 Tw=64 L=96 H=192 P=8", **phase3}, k3_text])
     print(json.dumps({"kernels": [*kernels, k3], "corpus": corpus}), flush=True)
     print(f"chip_smoke total {time.time() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

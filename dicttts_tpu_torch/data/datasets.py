@@ -8,16 +8,20 @@ binaries the binarizer writes:
   'word', 'dict'): mel, phone tokens, mel2ph, f0/uv (``use_pitch_embed``),
   words, word tokens, ph2word, mel2word, sandhi ``pron_modified``. With
   ``use_device_dict_bank`` (the recipe) items carry word ids only, and
-  ``device_bank`` builds the whole ``[V, L, E]`` dict bank once;
+  ``device_bank`` builds the whole ``[V, L, E]`` dict bank once; without
+  it each 'dict' item carries its own gathered bank (``_dict_bank``: keys,
+  values, maps, one row per word, zero BOS/EOS rows with maps 1).
   ``device_frame_cache`` builds the split's ``[N, T, 80]`` mels once.
 - ``TTSBatchProvider`` does the length-sorted token-budget batching and
   pads every batch to the configured bucket shapes, so its batches are the
   JAX package's, array for array. With ``emit_frame_refs`` the batches
   carry ``item_idx`` in place of the mels (the task gathers them from the
-  frame cache) and ``mel2word`` as int16.
+  frame cache) and ``mel2word`` as int16. Gathered banks are padded to the
+  gloss bucket (32, or ``gloss_buckets``) and the pinyin bucket (8, or
+  ``pinyin_buckets``).
 
-Not ported: per-utterance gathered banks (``use_device_dict_bank`` off),
-the ``.rio`` record format, and ``VocoderDataset`` (ROADMAP Queue 1).
+Not ported: the ``.rio`` record format and ``VocoderDataset`` (ROADMAP
+Queue 1).
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from dicttts_tpu_torch.data.collate import (
     batch_by_size,
     collate_1d,
     collate_2d,
+    collate_nd,
     ordered_indices,
     shape_bucket,
 )
@@ -59,10 +64,6 @@ class TTSBinaryDataset:
             raise NotImplementedError(
                 f"{base}.rio: the .rio record format is not ported yet (ROADMAP Queue 1 item 1); "
                 "use the .data/.idx binaries")
-        if kind == "dict" and cfg.get("use_dict", True) and not cfg.get("use_device_dict_bank"):
-            raise NotImplementedError(
-                "per-utterance gathered dict banks are not ported (ROADMAP Queue 1 item 6); "
-                "set use_device_dict_bank: true")
         self.ds = IndexedDataset(base)
         sizes_fn = os.path.join(data_dir, f"{prefix}_lengths.npy")
         self.sizes = (
@@ -71,6 +72,7 @@ class TTSBinaryDataset:
             else [len(self.ds[i]["mel"]) for i in range(len(self.ds))]
         )
         self._light_cache: dict = {}
+        self._dict_ds: Optional[IndexedDataset] = None  # dict_embed, opened at the first gathered bank
         self._word_encoder: Optional[TokenTextEncoder] = None
         self._pinyin_list: Optional[list] = None
         if kind == "dict" and cfg.get("use_dict", True):
@@ -163,6 +165,37 @@ class TTSBinaryDataset:
             self._light_cache[index] = cached = s
         return cached
 
+    def _dict_bank(self, words: list) -> dict:
+        """The gathered bank of one utterance: a row per word of words[1:-1]
+        from ``dict_embed`` (keys and values [n, L, E] f32, key_map [n, L],
+        pinyin ids and pinyin_map [n, P] int32, tokens_gloss), padded to the
+        utterance's widest entry, then a zero BOS and EOS row with maps 1,
+        as the collater of the upstream recipe pads them."""
+        if self._dict_ds is None:
+            self._dict_ds = IndexedDataset(os.path.join(self.data_dir, "dict_embed"))
+        keys, key_map, values, pinyin, pinyin_map, tokens_gloss = [], [], [], [], [], []
+        for word in words[1:-1]:
+            idx = self._word_encoder.token_to_id.get(word, 2)
+            e = self._dict_ds[idx]
+            keys.append(np.asarray(e["key"], np.float32))
+            key_map.append(np.asarray(e["key_map"], np.int32))
+            values.append(np.asarray(e["value"], np.float32))
+            pinyin.append(np.asarray([self._pinyin_list.index(p) for p in e["pinyin"]], np.int32))
+            pinyin_map.append(np.asarray(e["pinyin_map"], np.int32))
+            tokens_gloss.append(e.get("tokens_gloss"))
+        out = {
+            "keys": collate_2d(keys),
+            "key_map": collate_1d(key_map),
+            "values": collate_2d(values),
+            "pinyin": collate_1d(pinyin),
+            "pinyin_map": collate_1d(pinyin_map),
+        }
+        for k, v in out.items():  # BOS/EOS rows: zero floats and ids, maps 1
+            pad = ((1, 1),) + ((0, 0),) * (v.ndim - 1)
+            out[k] = np.pad(v, pad, constant_values=1 if k.endswith("_map") else 0)
+        out["tokens_gloss"] = tokens_gloss
+        return out
+
     def __getitem__(self, index: int) -> dict:
         item = self.ds[index]
         cfg = self.cfg
@@ -195,6 +228,8 @@ class TTSBinaryDataset:
             sample["ph2word"] = np.asarray(item["ph2word"], np.int64)[: cfg.get("max_input_tokens", 1550)]
             if "pron_modified" in item:
                 sample["pron_modified"] = np.asarray(item["pron_modified"], np.int64)
+        if self.kind == "dict" and self._word_encoder is not None and not cfg.get("use_device_dict_bank"):
+            sample.update(self._dict_bank(item["words"]))
         return sample
 
 
@@ -283,6 +318,21 @@ class TTSBatchProvider:
                 batch["pron_modified"] = collate_1d(
                     [s["pron_modified"][:t_w] for s in samples], max_len=t_w, dtype=np.int32
                 )
+            if "keys" in samples[0]:
+                # the gloss and pinyin axes are bucketed too, so that batches
+                # fall into a few shapes
+                l_k = shape_bucket(max(s["keys"].shape[1] for s in samples), 32,
+                                   tuple(cfg.get("gloss_buckets", ())) or None)
+                l_p = shape_bucket(max(s["pinyin"].shape[1] for s in samples), 8,
+                                   tuple(cfg.get("pinyin_buckets", ())) or None)
+                for key in ("keys", "values"):
+                    batch[key] = collate_nd([s[key][:t_w, :l_k] for s in samples],
+                                            max_lens=(t_w, l_k, None), dtype=np.float32)
+                batch["key_map"] = collate_nd([s["key_map"][:t_w, :l_k] for s in samples],
+                                              max_lens=(t_w, l_k), dtype=np.int32)
+                for key in ("pinyin", "pinyin_map"):
+                    batch[key] = collate_nd([s[key][:t_w, :l_p] for s in samples],
+                                            max_lens=(t_w, l_p), dtype=np.int32)
         return batch
 
     def _pad_sentence_bucket(self, batch: dict) -> dict:

@@ -33,17 +33,21 @@ from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
+from dicttts_tpu_torch.utils.device import resolve_device
 from dicttts_tpu_torch.vocoders.hifigan import MEL_SILENCE, spec2wav
 
 BANK_KEYS = ("keys", "key_map", "pinyin", "pinyin_map")
 
 
-def resolve_device(device) -> torch.device:
-    """torch.device for ``device``; raises when CUDA is asked for and absent."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' requested but no CUDA card is available")
-    return device
+def vocoder_batch(mel_out: torch.Tensor, n_frames: torch.Tensor, n_max: int) -> torch.Tensor:
+    """The vocoder's input for one batch: mel_out [B, T, 80] cropped to the
+    longest real length (``n_max``, bucketed to 64 frames, at most T), each
+    row's frames from its own ``n_frames[b]`` on at the mel silence floor,
+    so that the padded tails cannot bleed into real audio through the
+    generator's receptive field."""
+    t_crop = min(shape_bucket(n_max, 64), mel_out.shape[1])
+    frames = torch.arange(t_crop, device=mel_out.device)[None, :, None]
+    return torch.where(frames < n_frames[:, None, None], mel_out[:, :t_crop], MEL_SILENCE)
 
 
 def pinyin_decode(pron_attn: torch.Tensor, pinyin: torch.Tensor) -> torch.Tensor:
@@ -159,11 +163,7 @@ class DictTTSServer:
         out = self.acoustic_batch(requests, seed, noise)
         n_frames = (out["mel2word"] > 0).sum(dim=1)  # [B]
         n_host = n_frames.tolist()
-        t_crop = min(shape_bucket(max(n_host), 64), out["mel_out"].shape[1])
-        mel_b = out["mel_out"][:, :t_crop]
-        frames = torch.arange(t_crop, device=self.device)[None, :, None]
-        mel_b = torch.where(frames < n_frames[:, None, None], mel_b, MEL_SILENCE)
-        wav_b = spec2wav(self.vocoder, mel_b).cpu().numpy()
+        wav_b = spec2wav(self.vocoder, vocoder_batch(out["mel_out"], n_frames, max(n_host))).cpu().numpy()
         mel_host = out["mel_out"].cpu().numpy()
         pinyin_host = out["pinyin_pred"].cpu().numpy()
         return [

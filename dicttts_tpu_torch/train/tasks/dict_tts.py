@@ -6,13 +6,21 @@ composite mel loss + the word-duration loss + LSGAN-to-1 times
 lambda_mel_adv; the discriminator trains on the same step's detached
 output (``adv_base.py``).
 
-As the recipe sets it (``use_device_dict_bank``, ``s2pa_bank_fused``),
-the task holds the ``[V, L, E]`` bank and its maps on the card in the dtype
-they arrive in (the recipe's bank is bf16: ``device_bank()`` with no dtype),
-batches carry word ids only, and S2PA runs the gather-fused kernels over
-the un-gathered bank: K1 forward, K2 backward, in the bank's dtype, with
-the query cast to it as the JAX fused branch casts it. Batches that carry
-gathered banks are not ported.
+The dict bank reaches S2PA in one of three ways, by the JAX package's rule:
+
+- ``use_device_dict_bank`` with a bank (given, or from ``data.ds``), as
+  the recipe sets it: the task holds the ``[V, L, E]`` bank and its maps
+  on the device in the dtype they arrive in (the recipe's bank is bf16:
+  ``device_bank()`` with no dtype), and batches carry word ids only. With
+  ``s2pa_bank_fused`` (the recipe) S2PA runs the gather-fused kernels over
+  the un-gathered bank: K1 forward, K2 backward, in the bank's dtype, with
+  the query cast to it as the JAX fused branch casts it; without it the
+  bank's rows are gathered by word id and S2PA runs eagerly.
+- gathered banks: with ``use_device_dict_bank`` off, or in a task built
+  with neither data nor bank (as the inferencer builds it), batches carry
+  their own ``keys`` / ``values`` [B, Tw, L, E] and ``key_map`` /
+  ``pinyin`` / ``pinyin_map``. S2PA runs eagerly; in eval mode with
+  ``use_pallas_s2pa`` it runs the fused kernel K3, which has no backward.
 
 Built as ``run.py`` builds it, ``DictTTSTask(cfg, data)`` takes the bank
 from ``data.ds.device_bank()`` and its batches from ``data``; with
@@ -24,7 +32,8 @@ reads (``eval/per.py``).
 
 Batch keys (the collater's): word_tokens [B, Tw], pron_modified [B, Tw],
 mel2word [B, T_mel], mels [B, T_mel, 80] (or item_idx [B]),
-word_lengths [B], mel_lengths [B].
+word_lengths [B], mel_lengths [B]; with gathered banks also keys, values,
+key_map, pinyin, pinyin_map.
 """
 
 from __future__ import annotations
@@ -39,10 +48,12 @@ import torch
 from dicttts_tpu_torch.eval.per import decode_pinyin_ids
 from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
-from dicttts_tpu_torch.serve import BANK_KEYS, pinyin_decode, resolve_device
+from dicttts_tpu_torch.serve import BANK_KEYS, pinyin_decode
 from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.train.tasks.adv_base import AdversarialTTSTask
-from dicttts_tpu_torch.vocoders.hifigan import load_vocoder, save_wav, spec2wav
+from dicttts_tpu_torch.utils.device import resolve_device
+from dicttts_tpu_torch.vocoders import get_vocoder_cls
+from dicttts_tpu_torch.vocoders.hifigan import save_wav
 
 # The production recipe (configs/tts/dict_tts.yaml on ps_adv.yaml,
 # ps_flow.yaml and base.yaml). tests/test_torch_train_task.py holds every
@@ -76,8 +87,8 @@ DISC_DROPOUT = 0.25
 
 # settings the JAX package supports and this port does not yet
 _REQUIRED = {"use_prior_glow": True, "use_spk_id": False, "accumulate_grad_batches": 1,
-             "amp": False, "use_device_dict_bank": True, "s2pa_bank_fused": True,
-             "disc_norm": "in", "disc_reduction": "stack"}
+             "amp": False, "disc_norm": "in", "disc_reduction": "stack"}
+GATHERED_KEYS = ("keys", "values", "key_map", "pinyin", "pinyin_map")
 
 
 class DictTTSTask(AdversarialTTSTask):
@@ -87,7 +98,8 @@ class DictTTSTask(AdversarialTTSTask):
     {'keys' [V, L, E], 'key_map' [V, L], 'pinyin' [V, P], 'pinyin_map'
     [V, P]} (numpy arrays, bf16 ones included, or tensors). The bank is
     held on ``device`` in the dtypes it arrives in: the keys bf16 as the
-    recipe trains, or f32."""
+    recipe trains, or f32. With no bank (``use_device_dict_bank`` off, or
+    neither data nor bank) batches carry gathered banks."""
 
     def __init__(self, cfg: dict | None = None, data=None, device="cuda", *, bank: dict | None = None):
         self.cfg = {**DEFAULTS, "disc_dropout": DISC_DROPOUT, **(cfg or {})}
@@ -99,9 +111,16 @@ class DictTTSTask(AdversarialTTSTask):
         self._init_adv(self.cfg)
         self.mel_loss_spec = L.parse_mel_loss_spec(self.cfg["mel_loss"])
         ds = getattr(data, "ds", None)
-        if bank is None and data is not None and not hasattr(ds, "device_bank"):
+        want_bank = bool(self.cfg["use_device_dict_bank"])
+        if bank is not None and not want_bank:
+            raise ValueError("a device bank was given but use_device_dict_bank is false")
+        if want_bank and bank is None and data is not None and not hasattr(ds, "device_bank"):
             raise ValueError("use_device_dict_bank=true but the data provider exposes no "
                              ".ds.device_bank (give the task run.py's provider)")
+        # the JAX rule: the device bank needs the flag and a bank to hold;
+        # the gather-fused kernels need the device bank
+        self.use_device_bank = want_bank and (bank is not None or data is not None)
+        self.bank_fused = bool(self.cfg["s2pa_bank_fused"]) and self.use_device_bank
 
         def read_bank():
             b = bank if bank is not None else ds.device_bank(
@@ -109,7 +128,7 @@ class DictTTSTask(AdversarialTTSTask):
                 max_pinyin=self.cfg.get("device_bank_max_pinyin"))
             return {k: b[k] for k in BANK_KEYS}
 
-        self.bank = None if bank is None and data is None else self._hold("bank", read_bank)
+        self.bank = self._hold("bank", read_bank) if self.use_device_bank else None
         self._pinyin_list = self._vocoder = None  # read at the first test batch
 
     def build_model(self) -> DictTTS:
@@ -146,12 +165,19 @@ class DictTTSTask(AdversarialTTSTask):
         return self.data.test_batches()
 
     def _dict_msg(self, batch: dict) -> DictMsg:
-        """The device bank, un-gathered, with its int maps gathered by word id."""
+        """The batch's gathered bank; or the device bank with its int maps
+        gathered by word id, its keys un-gathered for the fused kernels or
+        gathered too."""
         if self.bank is None:
-            raise ValueError("the task holds no dict bank")
+            missing = [k for k in GATHERED_KEYS if k not in batch]
+            if missing:
+                raise ValueError(f"the task holds no device bank and the batch carries no gathered "
+                                 f"bank (missing {missing})")
+            return DictMsg(*(batch[k] for k in GATHERED_KEYS))
         wt = batch["word_tokens"].long()
         b = self.bank
-        return DictMsg(b["keys"], b["keys"], b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
+        keys = b["keys"] if self.bank_fused else b["keys"][wt]
+        return DictMsg(keys, keys, b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
 
     def _gen_losses(self, batch: dict, generator=None, train: bool = True, adv_w: float = 1.0,
                     eps=None, start_frames=None):
@@ -191,7 +217,8 @@ class DictTTSTask(AdversarialTTSTask):
             with open(os.path.join(cfg["binary_data_dir"], "pinyin_encoder.pkl"), "rb") as f:
                 self._pinyin_list = pickle.load(f)
             if cfg.get("vocoder_ckpt"):
-                self._vocoder = load_vocoder(cfg, self.device)
+                self._vocoder = get_vocoder_cls(cfg.get("vocoder", "HifiGanVocoder"))(
+                    cfg, device=self.device)
         rows = []
         metas = batch.get("_meta") or [{}] * out["mel_out"].shape[0]
         for b, meta in enumerate(metas):
@@ -201,8 +228,7 @@ class DictTTSTask(AdversarialTTSTask):
             np.save(os.path.join(out_dir, f"{name}.mel.npy"), mel)
             wav_fn = os.path.join(out_dir, f"{name}.wav")
             if self._vocoder is not None:
-                wav = spec2wav(self._vocoder, torch.as_tensor(mel, device=self.device))
-                save_wav(wav_fn, wav.cpu().numpy(), cfg.get("audio_sample_rate", 22050))
+                save_wav(wav_fn, self._vocoder.spec2wav(mel), cfg.get("audio_sample_rate", 22050))
             # two tokens per character, words 1..n-2 (BOS and EOS skipped)
             n_words = int((np.asarray(batch["word_tokens"])[b] > 0).sum())
             pinyin = " ".join(decode_pinyin_ids(out["pinyin_pred"][b], max(n_words - 2, 0),

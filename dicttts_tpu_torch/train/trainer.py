@@ -45,9 +45,9 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from dicttts_tpu_torch.serve import resolve_device
 from dicttts_tpu_torch.utils.checkpoint import (get_last_checkpoint, load_checkpoint, read_extras,
                                                 save_checkpoint)
+from dicttts_tpu_torch.utils.device import resolve_device
 from dicttts_tpu_torch.utils.prefetch import prefetch_iterator
 
 log = logging.getLogger("dicttts_tpu_torch.trainer")
