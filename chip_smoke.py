@@ -934,33 +934,19 @@ def sandhi_route():
 
 
 def text_cfg(root, binary, work_dir):
-    """The recipe's config as phase 8 saved it, with the repo's dictionary
-    (a stand-in with no entries where the checkout has none: the front end
-    then reads no dictionary), per-stage timers on, no vocoder checkpoint."""
+    """The recipe's config as phase 8 saved it, with the repo's dictionary,
+    per-stage timers on, no vocoder checkpoint."""
     from dicttts_tpu_torch.config import load_config
     from dicttts_tpu_torch.run import autoconfigure_vocabs
 
     dict_path = os.path.join(REPO, ".prod_corpus", "zh-dict.json")
     if not os.path.exists(dict_path):
-        dict_path = os.path.join(root, "zh-dict.json")
-        with open(dict_path, "w") as f:
-            f.write("{}")
-        say("dictionary: the checkout has no .prod_corpus/zh-dict.json; an empty stand-in")
+        raise FileNotFoundError(f"the text path needs the repo's dictionary {dict_path}")
     with in_dir(root):
         cfg = load_config(config=os.path.join(REPO, RECIPE_CONFIG), exp_name="recipe", infer=True)
     cfg = autoconfigure_vocabs(dict(cfg, binary_data_dir=binary))
     return dict(cfg, binary_data_dir=binary, dict_path=dict_path, work_dir=work_dir, profile_infer=True,
                 vocoder_ckpt="")
-
-
-def sync(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-
-
-def empty_cache(device) -> None:
-    if torch.device(device).type == "cuda":
-        torch.cuda.empty_cache()
 
 
 def synth_run(inf, texts, batch, seed0):
@@ -972,7 +958,7 @@ def synth_run(inf, texts, batch, seed0):
     Timer.totals = {}
     out, secs = [], 0.0
     for i in range(0, len(texts), batch):
-        sync(inf.device)
+        torch.cuda.synchronize()
         t = time.perf_counter()
         out += inf.synthesize_batch(texts[i:i + batch], seed=seed0 + i)
         secs += time.perf_counter() - t
@@ -990,7 +976,7 @@ def check_wavs(results, texts, hop):
             raise AssertionError(f"{text}: {len(info['pinyin'])} syllables for {len(info['text'])} characters")
 
 
-def text_to_wav(root, binary, work_dir, smi, device="cuda"):
+def text_to_wav(root, binary, work_dir, smi):
     """Phase 9a: DictTTSInferencer, text -> wav at the recipe's width on
     phase 8's newest checkpoint, eager S2PA (the recipe) and K3. Returns the
     K3 record at the inferencer's shape, K3's launches and the report."""
@@ -1007,12 +993,12 @@ def text_to_wav(root, binary, work_dir, smi, device="cuda"):
     cfg = text_cfg(root, binary, work_dir)
     sr, n_b1 = cfg["audio_sample_rate"], 8
     ckpt = get_last_checkpoint(work_dir)
-    saved = load_checkpoint(ckpt, map_location=device)[1]["params_g"]
+    saved = load_checkpoint(ckpt, map_location="cuda")[1]["params_g"]
     runs, report, k3_inputs = {}, {"sandhi": route}, []
     for use_pallas in (False, True):
         mode = "k3" if use_pallas else "eager"
         t = time.perf_counter()
-        inf = DictTTSInferencer(dict(cfg, use_pallas_s2pa=use_pallas), device=device, sandhi=sandhi)
+        inf = DictTTSInferencer(dict(cfg, use_pallas_s2pa=use_pallas), sandhi=sandhi)
         say(f"{mode}: inferencer built in {time.perf_counter() - t:.2f} s from {os.path.basename(ckpt)}; "
             f"vocoder {type(inf.vocoder).__name__} (seeded init, upsample_initial_channel "
             f"{inf.vocoder.generator.conv_pre.out_channels}, hop {inf.vocoder.hop})")
@@ -1071,12 +1057,12 @@ def text_to_wav(root, binary, work_dir, smi, device="cuda"):
         report[mode] = rec
         if not use_pallas:  # the bf16 vocoder against the f32 one on the B=16 mels
             voc16 = HifiGanVocoder(dict(cfg, vocoder_infer_dtype="bfloat16"),
-                                   params=inf.vocoder.generator.state_dict(), device=device)
+                                   params=inf.vocoder.generator.state_dict())
             mels = [i["mel"] for _, i in b16[:16]]
             batch = np.full((16, max(len(m) for m in mels), 80), -6.0, np.float32)
             for j, m in enumerate(mels):
                 batch[j, :len(m)] = m
-            mel_t = torch.tensor(batch, device=device)
+            mel_t = torch.tensor(batch, device="cuda")
             ms32 = time_ms(lambda: spec2wav(inf.vocoder.generator, mel_t), iters=5, warmup=1)
             ms16 = time_ms(lambda: spec2wav(voc16.generator, mel_t), iters=5, warmup=1)
             w32 = spec2wav(inf.vocoder.generator, mel_t)
@@ -1089,7 +1075,7 @@ def text_to_wav(root, binary, work_dir, smi, device="cuda"):
                 raise AssertionError("the bf16 vocoder strays from the f32 one")
             del voc16, w32, w16, mel_t
         del inf
-        empty_cache(device)
+        torch.cuda.empty_cache()
 
     worst, ties = 0.0, []
     for text, (_, a), (_, b) in zip(texts, runs["eager"], runs["k3"]):
@@ -1135,7 +1121,7 @@ def text_to_wav(root, binary, work_dir, smi, device="cuda"):
     return k3_case, report["k3"]["k3_launches"], report
 
 
-def gathered_training(root, binary, smi, recipe_report, device="cuda"):
+def gathered_training(root, binary, smi, recipe_report):
     """Phase 9b: run.main on the corpus with per-utterance gathered banks
     (use_device_dict_bank=False) for a few steps. Returns the report."""
     from dicttts_tpu_torch import run
@@ -1146,24 +1132,21 @@ def gathered_training(root, binary, smi, recipe_report, device="cuda"):
     hp = (f"binary_data_dir={binary},use_device_dict_bank=False,max_updates={steps},"
           f"val_check_interval={steps},num_sanity_val_steps=0")
     with in_dir(root):
-        sync(device)
-        if device == "cuda":
-            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
         t = time.time()
         trainer, task = run.main(["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", "gathered",
-                                  "--device", device, "--hparams", hp])
-        sync(device)
+                                  "--device", "cuda", "--hparams", hp])
+        torch.cuda.synchronize()
     launches = (s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, s2pa_fused.launches)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else float("nan")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
     vals = {k: float(v) for k, v in trainer.metrics.items()}
     say(f"run.main on gathered banks: {trainer.global_step} steps in {time.time() - t:.1f} s (validation "
         f"and checkpoint included), peak memory {peak:.2f} GiB; launches (K1, K2, K3) {launches}; device "
         f"bank held: {task.bank is not None}; last step {vals}; validation {trainer.val_metrics}; on {smi}")
     report = {"train": step_report(trainer.history, "gathered", smi), "peak_gib": peak, "launches": launches}
-    device_bank = {}
-    for shape, ms in recipe_report["train"]["step_ms"].items():
-        device_bank[shape] = ms
+    device_bank = recipe_report["train"]["step_ms"]
     for shape, ms in report["train"]["step_ms"].items():
         if shape in device_bank:
             say(f"step ms at {shape}: gathered banks {' '.join(f'{x:.1f}' for x in ms)}; the device bank "
@@ -1174,7 +1157,7 @@ def gathered_training(root, binary, smi, recipe_report, device="cuda"):
     if launches != (0, 0, 0):
         raise AssertionError(f"gathered-bank training launched K1/K2/K3 {launches}")
     del trainer, task
-    empty_cache(device)
+    torch.cuda.empty_cache()
     return report
 
 

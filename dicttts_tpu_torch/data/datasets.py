@@ -53,6 +53,34 @@ def transfer_mel_dtype(cfg: dict):
     return np.float16 if cfg.get("mel_transfer_f16", bool(cfg.get("amp"))) else np.float32
 
 
+def utterance_bank(dict_ds, token_to_id: dict, pinyin_list: list, words: list, read_values: bool,
+                   int_dtype=np.int32) -> tuple[dict, list]:
+    """The gathered bank of one utterance, by the rule the training collater
+    and the inferencer share: a row per word from ``dict_embed`` (keys, and
+    values where ``read_values``, [n, L, E] f32; key_map [n, L]; pinyin ids
+    and pinyin_map [n, P] in ``int_dtype``), padded with zeros to the
+    utterance's widest entry, then a zero BOS and EOS row with maps 1, as
+    the collater of the upstream recipe pads them. Returns it and the
+    words' tokens_gloss."""
+    rows = {k: [] for k in ("keys", "key_map", *(("values",) if read_values else ()), "pinyin", "pinyin_map")}
+    tokens_gloss = []
+    for word in words:
+        e = dict_ds[token_to_id.get(word, 2)]
+        rows["keys"].append(np.asarray(e["key"], np.float32))
+        rows["key_map"].append(np.asarray(e["key_map"], int_dtype))
+        if read_values:
+            rows["values"].append(np.asarray(e["value"], np.float32))
+        rows["pinyin"].append(np.asarray([pinyin_list.index(p) for p in e["pinyin"]], int_dtype))
+        rows["pinyin_map"].append(np.asarray(e["pinyin_map"], int_dtype))
+        tokens_gloss.append(e.get("tokens_gloss"))
+    out = {}
+    for k, v in rows.items():  # BOS/EOS rows: zero floats and ids, maps 1
+        v = collate_2d(v) if v[0].ndim == 2 else collate_1d(v)
+        pad = ((1, 1),) + ((0, 0),) * (v.ndim - 1)
+        out[k] = np.pad(v, pad, constant_values=1 if k.endswith("_map") else 0)
+    return out, tokens_gloss
+
+
 class TTSBinaryDataset:
     def __init__(self, data_dir: str, prefix: str, cfg: dict, kind: str = "dict"):
         self.data_dir = data_dir
@@ -166,33 +194,12 @@ class TTSBinaryDataset:
         return cached
 
     def _dict_bank(self, words: list) -> dict:
-        """The gathered bank of one utterance: a row per word of words[1:-1]
-        from ``dict_embed`` (keys and values [n, L, E] f32, key_map [n, L],
-        pinyin ids and pinyin_map [n, P] int32, tokens_gloss), padded to the
-        utterance's widest entry, then a zero BOS and EOS row with maps 1,
-        as the collater of the upstream recipe pads them."""
+        """The gathered bank of one utterance (``utterance_bank``) over
+        words[1:-1], keys and values both read, with its tokens_gloss."""
         if self._dict_ds is None:
             self._dict_ds = IndexedDataset(os.path.join(self.data_dir, "dict_embed"))
-        keys, key_map, values, pinyin, pinyin_map, tokens_gloss = [], [], [], [], [], []
-        for word in words[1:-1]:
-            idx = self._word_encoder.token_to_id.get(word, 2)
-            e = self._dict_ds[idx]
-            keys.append(np.asarray(e["key"], np.float32))
-            key_map.append(np.asarray(e["key_map"], np.int32))
-            values.append(np.asarray(e["value"], np.float32))
-            pinyin.append(np.asarray([self._pinyin_list.index(p) for p in e["pinyin"]], np.int32))
-            pinyin_map.append(np.asarray(e["pinyin_map"], np.int32))
-            tokens_gloss.append(e.get("tokens_gloss"))
-        out = {
-            "keys": collate_2d(keys),
-            "key_map": collate_1d(key_map),
-            "values": collate_2d(values),
-            "pinyin": collate_1d(pinyin),
-            "pinyin_map": collate_1d(pinyin_map),
-        }
-        for k, v in out.items():  # BOS/EOS rows: zero floats and ids, maps 1
-            pad = ((1, 1),) + ((0, 0),) * (v.ndim - 1)
-            out[k] = np.pad(v, pad, constant_values=1 if k.endswith("_map") else 0)
+        out, tokens_gloss = utterance_bank(self._dict_ds, self._word_encoder.token_to_id, self._pinyin_list,
+                                           words[1:-1], read_values=True)
         out["tokens_gloss"] = tokens_gloss
         return out
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from dicttts_tpu_torch.data.collate import shape_bucket
+from dicttts_tpu_torch.data.datasets import utterance_bank
 from dicttts_tpu_torch.eval.metrics import Timer
 from dicttts_tpu_torch.eval.per import decode_pinyin_ids, merge_token_pairs
 from dicttts_tpu_torch.serve import vocoder_batch
@@ -88,31 +89,12 @@ class DictTTSInferencer:
         self.vocoder = get_vocoder_cls(cfg.get("vocoder", "HifiGanVocoder"))(cfg, device=self.device)
 
     def _bank_for(self, chars: list[str]) -> dict:
-        """Per-char dict bank for the real chars only; BOS/EOS rows are then
-        added as the training collater adds them (zero key/pinyin rows,
-        key/pinyin maps padded with 1), so that the inference input
-        distribution matches training."""
-        keys, key_map, pinyin, pinyin_map = [], [], [], []
-        for ch in chars:
-            e = self.dict_ds[self.word_encoder.token_to_id.get(ch, 2)]
-            keys.append(np.asarray(e["key"], np.float32))
-            key_map.append(np.asarray(e["key_map"], np.int64))
-            pinyin.append(np.asarray([self.pinyin_list.index(p) for p in e["pinyin"]], np.int64))
-            pinyin_map.append(np.asarray(e["pinyin_map"], np.int64))
-        n, L, P = len(chars), max(k.shape[0] for k in keys), max(p.shape[0] for p in pinyin)
-        out = {
-            "keys": np.zeros((n, L, keys[0].shape[-1]), np.float32),
-            "key_map": np.zeros((n, L), np.int64),
-            "pinyin": np.zeros((n, P), np.int64),
-            "pinyin_map": np.zeros((n, P), np.int64),
-        }
-        for i in range(n):
-            for k, rows in (("keys", keys), ("key_map", key_map), ("pinyin", pinyin),
-                            ("pinyin_map", pinyin_map)):
-                out[k][i, : rows[i].shape[0]] = rows[i]
-        for k, v in out.items():  # BOS/EOS rows (training-collater convention)
-            pad = ((1, 1),) + ((0, 0),) * (v.ndim - 1)
-            out[k] = np.pad(v, pad, constant_values=1 if k.endswith("_map") else 0)
+        """Per-char dict bank for the real chars only, with BOS/EOS rows, by
+        the training collater's rule (``utterance_bank``), so that the
+        inference input distribution matches training; int64 maps and the
+        values aliasing the keys, as the JAX inferencer builds them."""
+        out, _ = utterance_bank(self.dict_ds, self.word_encoder.token_to_id, self.pinyin_list, chars,
+                                read_values=False, int_dtype=np.int64)
         out["values"] = out["keys"]
         return out
 

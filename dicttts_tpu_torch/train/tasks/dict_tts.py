@@ -6,16 +6,16 @@ composite mel loss + the word-duration loss + LSGAN-to-1 times
 lambda_mel_adv; the discriminator trains on the same step's detached
 output (``adv_base.py``).
 
-The dict bank reaches S2PA in one of three ways, by the JAX package's rule:
+The dict bank reaches S2PA in one of two ways, by the JAX package's rule:
 
 - ``use_device_dict_bank`` with a bank (given, or from ``data.ds``), as
   the recipe sets it: the task holds the ``[V, L, E]`` bank and its maps
   on the device in the dtype they arrive in (the recipe's bank is bf16:
-  ``device_bank()`` with no dtype), and batches carry word ids only. With
-  ``s2pa_bank_fused`` (the recipe) S2PA runs the gather-fused kernels over
-  the un-gathered bank: K1 forward, K2 backward, in the bank's dtype, with
-  the query cast to it as the JAX fused branch casts it; without it the
-  bank's rows are gathered by word id and S2PA runs eagerly.
+  ``device_bank()`` with no dtype), and batches carry word ids only. S2PA
+  runs the gather-fused kernels over the un-gathered bank
+  (``s2pa_bank_fused``, which counts only with a device bank): K1 forward,
+  K2 backward, in the bank's dtype, with the query cast to it as the JAX
+  fused branch casts it.
 - gathered banks: with ``use_device_dict_bank`` off, or in a task built
   with neither data nor bank (as the inferencer builds it), batches carry
   their own ``keys`` / ``values`` [B, Tw, L, E] and ``key_map`` /
@@ -87,7 +87,7 @@ DISC_DROPOUT = 0.25
 
 # settings the JAX package supports and this port does not yet
 _REQUIRED = {"use_prior_glow": True, "use_spk_id": False, "accumulate_grad_batches": 1,
-             "amp": False, "disc_norm": "in", "disc_reduction": "stack"}
+             "amp": False, "s2pa_bank_fused": True, "disc_norm": "in", "disc_reduction": "stack"}
 GATHERED_KEYS = ("keys", "values", "key_map", "pinyin", "pinyin_map")
 
 
@@ -117,10 +117,8 @@ class DictTTSTask(AdversarialTTSTask):
         if want_bank and bank is None and data is not None and not hasattr(ds, "device_bank"):
             raise ValueError("use_device_dict_bank=true but the data provider exposes no "
                              ".ds.device_bank (give the task run.py's provider)")
-        # the JAX rule: the device bank needs the flag and a bank to hold;
-        # the gather-fused kernels need the device bank
+        # the JAX rule: the device bank needs the flag and a bank to hold
         self.use_device_bank = want_bank and (bank is not None or data is not None)
-        self.bank_fused = bool(self.cfg["s2pa_bank_fused"]) and self.use_device_bank
 
         def read_bank():
             b = bank if bank is not None else ds.device_bank(
@@ -165,9 +163,8 @@ class DictTTSTask(AdversarialTTSTask):
         return self.data.test_batches()
 
     def _dict_msg(self, batch: dict) -> DictMsg:
-        """The batch's gathered bank; or the device bank with its int maps
-        gathered by word id, its keys un-gathered for the fused kernels or
-        gathered too."""
+        """The batch's gathered bank; or the device bank, un-gathered, with
+        its int maps gathered by word id."""
         if self.bank is None:
             missing = [k for k in GATHERED_KEYS if k not in batch]
             if missing:
@@ -176,8 +173,7 @@ class DictTTSTask(AdversarialTTSTask):
             return DictMsg(*(batch[k] for k in GATHERED_KEYS))
         wt = batch["word_tokens"].long()
         b = self.bank
-        keys = b["keys"] if self.bank_fused else b["keys"][wt]
-        return DictMsg(keys, keys, b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
+        return DictMsg(b["keys"], b["keys"], b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
 
     def _gen_losses(self, batch: dict, generator=None, train: bool = True, adv_w: float = 1.0,
                     eps=None, start_frames=None):

@@ -203,7 +203,7 @@ def test_gathered_train_step_losses_and_gradients_match_jax(monkeypatch):
         params_d, out["mel_out"], jbatch["mels"], jbatch["mel_lengths"], key)
 
     task = DictTTSTask({**CFG, "disc_dropout": 0.0}, device="cpu")
-    assert task.bank is None and not task.use_device_bank and not task.bank_fused
+    assert task.bank is None and not task.use_device_bank
     task.build_state(0)
     load_jax_params(task.model, params_g)
     load_jax_params(task.disc, params_d)
@@ -239,24 +239,28 @@ def test_which_bank_the_task_reads():
             "pinyin_map": np.tile(np.array([1, 1, 2, 2], np.int32), (V, 1))}
     base = {**CFG, "use_device_dict_bank": True}
     fused = DictTTSTask(base, device="cpu", bank=bank)
-    gathered = DictTTSTask({**base, "s2pa_bank_fused": False}, device="cpu", bank=bank)
     neither = DictTTSTask(base, device="cpu")  # no data, no bank: gathered, as the inferencer builds it
-    assert fused.bank_fused and gathered.use_device_bank and not gathered.bank_fused
-    assert neither.bank is None and not neither.use_device_bank
+    assert fused.use_device_bank and neither.bank is None and not neither.use_device_bank
     wt = torch.as_tensor(batch["word_tokens"]).long()
     dm_f = fused._dict_msg({"word_tokens": wt})
-    dm_g = gathered._dict_msg({"word_tokens": wt})
-    assert dm_f.keys.shape == (V, L, E) and dm_g.keys.shape == (*wt.shape, L, E)
-    torch.testing.assert_close(dm_g.keys, fused.bank["keys"][wt], rtol=0, atol=0)
-    for a, b in zip(dm_f[2:], dm_g[2:]):
-        assert torch.equal(a, b)
-    # the fused kernels and the gathered rows give the same outputs
-    for task in (fused, gathered):
+    assert dm_f.keys.shape == (V, L, E)
+    # the device bank's rows, gathered into the batch, give the same outputs
+    # on the gathered route as the fused kernels give on the device bank
+    b = fused.bank
+    gathered = {"keys": b["keys"][wt], "values": b["keys"][wt], "key_map": b["key_map"][wt],
+                "pinyin": b["pinyin"][wt], "pinyin_map": b["pinyin_map"][wt]}
+    dm_g = neither._dict_msg({"word_tokens": wt, **gathered})
+    for a, g in zip(dm_f[2:], dm_g[2:]):
+        assert torch.equal(a, g)
+    for task in (fused, neither):
         task.build_state(4)
-    gathered.model.load_state_dict(fused.model.state_dict())
+    neither.model.load_state_dict(fused.model.state_dict())
     tb = fused.to_device({k: batch[k] for k in ("word_tokens", "pron_modified")})
-    outs = [t.test_step(tb, noise=torch.zeros(2, 1548 // 4, 4)) for t in (fused, gathered)]
+    outs = [t.test_step(bt, noise=torch.zeros(2, 1548 // 4, 4))
+            for t, bt in ((fused, tb), (neither, {**tb, **gathered}))]
     torch.testing.assert_close(outs[0]["mel_out"], outs[1]["mel_out"], rtol=0, atol=1e-5)
+    with pytest.raises(ValueError, match="s2pa_bank_fused"):
+        DictTTSTask({**base, "s2pa_bank_fused": False}, device="cpu", bank=bank)
     with pytest.raises(ValueError, match="gathered bank"):
         neither._dict_msg({"word_tokens": wt})
     with pytest.raises(ValueError, match="use_device_dict_bank is false"):
