@@ -274,6 +274,66 @@ def bank_bound(args, bwd):
     return bound_ms, bound_by, n_bytes, n_rows
 
 
+FUSED_H, FUSED_P = 192, 8  # K3's width on every path: the recipe's hidden size; pinyin slots bucketed to 8
+
+
+def text_layout(rng, B, T, L, P):
+    """key_map [B, T, L] and pinyin_map [B, T, P] (int32 numpy) laid out as
+    the text path's K3 inputs are (DictTTSInferencer._collate over
+    data/utterance_bank on phase 8's stand-in dict_embed): sentence b of
+    the PER test set gives BOS + its characters + EOS words; a word's gloss
+    has floor(triangular(1, 1, 57)) tokens (cut to L) and 1-3 senses over
+    contiguous tokens, each sense two pinyin slots; the BOS and EOS rows
+    carry maps 1 over the utterance's widest gloss and pinyin; the batch's
+    pad words are all-masked (maps 0)."""
+    km = np.zeros((B, T, L), np.int32)
+    pm = np.zeros((B, T, P), np.int32)
+    for b, text in enumerate(per_sentences()[:B]):
+        n = min(len(text) + 2, T)
+        glen = np.minimum(np.floor(rng.triangular(1, 1, 57, n - 2)).astype(int), L)
+        senses = rng.randint(1, 4, n - 2)
+        km[b, [0, n - 1], :glen.max()] = 1
+        pm[b, [0, n - 1], :min(P, 2 * senses.max())] = 1
+        for i, (g, ns) in enumerate(zip(glen, senses), 1):
+            km[b, i, :g] = np.arange(g) * ns // g + 1
+            pm[b, i, :min(P, 2 * ns)] = np.repeat(np.arange(1, ns + 1), 2)[:P]
+    return km, pm
+
+
+def fused_case(device, gen, B, T, L, layout="synthetic", H=FUSED_H, P=FUSED_P):
+    """K3's inputs (q, k, v, key_map, pinyin_map), f32 on the device: q
+    scaled by H ** -0.5, k and v unit normal. ``synthetic`` (phase 3):
+    key_map random in 0-3 with its first token 1, row (0, 3) all-masked,
+    pinyin_map 1 1 2 2 3 3 0 0; ``text``: the text path's layout
+    (text_layout, from a numpy seed drawn from gen)."""
+    q = torch.randn((B, T, H), generator=gen, device=device) * (1.0 / math.sqrt(H))
+    k = torch.randn((B, T, L, H), generator=gen, device=device)
+    v = torch.randn((B, T, L, H), generator=gen, device=device)
+    if layout == "text":
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,), generator=gen, device=device).item())
+        km, pm = (torch.from_numpy(a).to(device) for a in text_layout(np.random.RandomState(seed), B, T, L, P))
+    else:
+        km = torch.randint(0, 4, (B, T, L), generator=gen, device=device, dtype=torch.int32)
+        km[:, :, 0] = 1
+        km[0, 3] = 0  # an all-masked row
+        pm = torch.tensor([1, 1, 2, 2, 3, 3, 0, 0], device=device, dtype=torch.int32)[:P].expand(B, T, P).contiguous()
+    return q, k, v, km, pm
+
+
+def mask_shares(km):
+    """(share of masked gloss tokens, share of all-masked rows) of a key_map."""
+    masked = km == 0
+    return masked.float().mean().item(), masked.all(dim=-1).float().mean().item()
+
+
+def fused_bound(N, L, H, P):
+    """K3's least time for N rows: (ms, 'bytes' or 'operations', bytes),
+    each input read once and each output written once."""
+    n_bytes = 4 * (N * H + 2 * N * L * H + N * L + N * P  # in: q, k, v, key_map, pinyin_map
+                   + N * H + N * L + N * P)  # out: ctx, w, pron
+    return (*bound(n_bytes, 4.0 * N * L * H + 2.0 * N * L * P, "float32"), n_bytes)
+
+
 def check_bank_case(args, g_ctx, g_w, label, smi, bwd=True):
     """K1 (and K2) against their plain versions on one case, then timed
     (L2 flushed before each call) beside the byte bound. Returns the
@@ -345,17 +405,10 @@ def check_bank_case(args, g_ctx, g_w, label, smi, bwd=True):
 
 
 def check_fused_kernel(device, gen):
-    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
+    from dicttts_tpu_torch.ops.s2pa_fused import fused_kernel_plan, s2pa_fused, s2pa_fused_plain
 
-    B, T, L, H, P = 16, 64, 96, 192, 8
-    q = torch.randn((B, T, H), generator=gen, device=device) * (1.0 / math.sqrt(H))
-    k = torch.randn((B, T, L, H), generator=gen, device=device)
-    v = torch.randn((B, T, L, H), generator=gen, device=device)
-    km = torch.randint(0, 4, (B, T, L), generator=gen, device=device, dtype=torch.int32)
-    km[:, :, 0] = 1
-    km[0, 3] = 0  # an all-masked row
-    pm = torch.tensor([1, 1, 2, 2, 3, 3, 0, 0], device=device, dtype=torch.int32).expand(B, T, P).contiguous()
-    args = (q, k, v, km, pm)
+    B, T, L, H, P = 16, 64, 96, FUSED_H, FUSED_P
+    args = fused_case(device, gen, B, T, L)
     out = s2pa_fused(*args)
     torch.cuda.synchronize()
     ref = s2pa_fused_plain(*args)
@@ -366,17 +419,15 @@ def check_fused_kernel(device, gen):
     ms = time_ms(lambda: s2pa_fused(*args))
     plain_ms = time_ms(lambda: s2pa_fused_plain(*args))
     cold_ms = device_ms(lambda: s2pa_fused(*args), cold=True)
-    N = B * T
-    n_bytes = 4 * (N * H + 2 * N * L * H + N * L + N * P  # in: q, k, v, key_map, pinyin_map
-                   + N * H + N * L + N * P)  # out: ctx, w, pron
-    bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * H + 2.0 * N * L * P, "float32")
+    bound_ms, bound_by, n_bytes = fused_bound(B * T, L, H, P)
+    plan = fused_kernel_plan(B * T, L, H, P)
     say(f"K3: kernel {ms:.4f} ms (events around back-to-back calls; its device time with L2 flushed "
         f"{cold_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{n_bytes / 1e6:.1f} MB)")
+        f"{n_bytes / 1e6:.1f} MB); plan {json.dumps(plan)}")
     return {"name": "s2pa_fused", "route": "cuda", "source": "dicttts_tpu_torch/csrc/s2pa_fused.cu",
             "replaces": "dicttts_tpu/ops/s2pa_pallas.py:104", "max_abs_err": err,
             "ms": ms, "device_ms_cold": cold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None}
+            "bound_by": bound_by, "library_ms": None, "plan": plan}
 
 
 def check_bank_autograd(args):

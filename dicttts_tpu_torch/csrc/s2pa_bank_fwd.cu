@@ -202,17 +202,9 @@ extern "C" void s2pa_bank_chunks(const int32_t* ids, int n, int32_t* counts) {
 }
 
 #ifdef S2PA_PROFILE
-// Profiling builds only: read and clear the marks; how many clusters of C
-// CTAs with `smem` bytes each the card holds at once (the kernel at
-// E = 768).
-extern "C" int s2pa_prof_copy(void* dst, size_t bytes) {
-  return static_cast<int>(cudaMemcpyFromSymbol(dst, s2pa::g_prof, bytes));
-}
-extern "C" int s2pa_prof_clear() {
-  void* p;
-  cudaGetSymbolAddress(&p, s2pa::g_prof);
-  return static_cast<int>(cudaMemset(p, 0, sizeof(s2pa::g_prof)));
-}
+// Profiling builds only (the marks' copy and clear are the header's): how
+// many clusters of C CTAs with `smem` bytes each the card holds at once
+// (the kernel at E = 768).
 extern "C" int s2pa_prof_max_clusters(int C, int smem, int is_bf16) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(4096 * C);

@@ -63,6 +63,25 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Eight per-lane values v[0..7] summed over the warp at once: one
+// transposed butterfly (4 + 2 + 1 + 2 shuffles instead of 8 x 5) leaves
+// the sum of v[t] in lanes 4t..4t+3; returned in every lane j, the sum of
+// v[j & 7].
+__device__ __forceinline__ float sum8_transposed(const float (&v)[8], int lane) {
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  float u4[4], u2[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    u4[i] = (b4 ? v[i + 4] : v[i]) + __shfl_xor_sync(0xffffffffu, b4 ? v[i] : v[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    u2[i] = (b3 ? u4[i + 2] : u4[i]) + __shfl_xor_sync(0xffffffffu, b3 ? u4[i] : u4[i + 2], 8);
+  float u = (b2 ? u2[1] : u2[0]) + __shfl_xor_sync(0xffffffffu, b2 ? u2[0] : u2[1], 4);
+  u += __shfl_xor_sync(0xffffffffu, u, 2);
+  u += __shfl_xor_sync(0xffffffffu, u, 1);
+  return __shfl_sync(0xffffffffu, u, (lane & 7) * 4);
+}
+
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
@@ -109,14 +128,16 @@ struct Vec16<__nv_bfloat16> {
   }
 };
 
-// ---- the bank kernels' cluster layout ------------------------------------
+// ---- profile marks ------------------------------------------------------
 
 #ifdef S2PA_PROFILE
-// Profiling builds only (scripts/torch_bank_kernels_profile.py compiles
-// s2pa_bank_fwd.cu with -DS2PA_PROFILE): thread 0 of every CTA that owns a
-// chunk records clock64() at mark i of its first slot (entries 0-10), and
-// %globaltimer at its start and end (12, 13), its SM (14) and its slots
-// (15). The kernels' own builds compile the marks to nothing.
+// Profiling builds only, of one source at a time (-DS2PA_PROFILE:
+// scripts/torch_bank_kernels_profile.py builds s2pa_bank_fwd.cu,
+// scripts/torch_bank_kernels_ab.py --profile builds s2pa_fused.cu): thread
+// 0 of every CTA that does work records clock64() at the kernel's marks
+// (entries 0-10; K1 at its first slot's), %globaltimer at its start and end
+// (12, 13), its SM (14) and a count of its own (15; K1: its slots). The
+// kernels' own builds compile the marks to nothing.
 constexpr int kProfCtas = 100000;
 __device__ unsigned long long g_prof[kProfCtas * 16];
 __device__ __forceinline__ void prof_put(int i, unsigned long long v) {
@@ -134,25 +155,38 @@ __device__ __forceinline__ unsigned prof_smid() {
 }
 #define S2PA_MARK(k, i)                    \
   do {                                     \
-    if ((k) == 0) prof_put(i, clock64());  \
+    if ((k) == 0) ::s2pa::prof_put(i, clock64());  \
   } while (0)
 #define S2PA_MARK_START(count)                                \
   do {                                                        \
-    prof_put(0, clock64());                                   \
-    prof_put(12, prof_globaltimer());                         \
-    prof_put(14, prof_smid());                                \
-    prof_put(15, static_cast<unsigned long long>(count));     \
+    ::s2pa::prof_put(0, clock64());                           \
+    ::s2pa::prof_put(12, ::s2pa::prof_globaltimer());         \
+    ::s2pa::prof_put(14, ::s2pa::prof_smid());                \
+    ::s2pa::prof_put(15, static_cast<unsigned long long>(count)); \
   } while (0)
 #define S2PA_MARK_END(i)              \
   do {                                \
-    prof_put(i, clock64());           \
-    prof_put(13, prof_globaltimer()); \
+    ::s2pa::prof_put(i, clock64());   \
+    ::s2pa::prof_put(13, ::s2pa::prof_globaltimer()); \
   } while (0)
+}  // namespace s2pa
+// Read and clear the marks (host).
+extern "C" int s2pa_prof_copy(void* dst, size_t bytes) {
+  return static_cast<int>(cudaMemcpyFromSymbol(dst, s2pa::g_prof, bytes));
+}
+extern "C" int s2pa_prof_clear() {
+  void* p;
+  cudaGetSymbolAddress(&p, s2pa::g_prof);
+  return static_cast<int>(cudaMemset(p, 0, sizeof(s2pa::g_prof)));
+}
+namespace s2pa {
 #else
 #define S2PA_MARK(k, i) ((void)0)
 #define S2PA_MARK_START(count) ((void)0)
 #define S2PA_MARK_END(i) ((void)0)
 #endif
+
+// ---- the bank kernels' cluster layout ------------------------------------
 
 // 128 threads a CTA and clusters of 4 (bf16) or 8 (f32) CTAs: CTAs of 256
 // or 512 threads with clusters of 2 or 1 (2 or 1 CTAs an SM) were slower
@@ -358,20 +392,9 @@ __device__ __forceinline__ void token_dots(const T* row_s, const LaneRow<T, NIT>
         }
       }
     }
-    const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
 #pragma unroll
     for (int qi = 0; qi < NQ; ++qi) {
-      float u4[4], u2[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        u4[i] = (b4 ? v[qi][i + 4] : v[qi][i]) + __shfl_xor_sync(0xffffffffu, b4 ? v[qi][i] : v[qi][i + 4], 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        u2[i] = (b3 ? u4[i + 2] : u4[i]) + __shfl_xor_sync(0xffffffffu, b3 ? u4[i] : u4[i + 2], 8);
-      float u = (b2 ? u2[1] : u2[0]) + __shfl_xor_sync(0xffffffffu, b2 ? u2[0] : u2[1], 4);
-      u += __shfl_xor_sync(0xffffffffu, u, 2);
-      u += __shfl_xor_sync(0xffffffffu, u, 1);
-      const float mine = __shfl_sync(0xffffffffu, u, (lane & 7) * 4);
+      const float mine = sum8_transposed(v[qi], lane);
       if (lane >= j0 && lane < j0 + 8) out[qi] = mine;
     }
   }
@@ -474,17 +497,18 @@ __device__ __forceinline__ void reduce_columns(const float* recv, int E, int C, 
 template <typename T>
 constexpr int kMaxNit = kMaxE / (32 * Vec16<T>::n);
 
-// Launch `kernel` over n_clusters clusters of C CTAs with `smem` bytes of
-// dynamic shared memory each. Returns the cudaError_t.
+// Launch `kernel` over `ctas` CTAs of `threads` threads in clusters of C
+// (ctas a multiple of C), with `smem` bytes of dynamic shared memory each.
+// Returns the cudaError_t.
 template <typename... Params, typename... Args>
-inline int launch_clusters(void (*kernel)(Params...), int n_clusters, int C, size_t smem, cudaStream_t s,
-                           Args... args) {
+inline int launch_cluster_grid(void (*kernel)(Params...), int ctas, int C, int threads, size_t smem,
+                               cudaStream_t s, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(n_clusters) * C);
-  cfg.blockDim = dim3(kBankThreads);
+  cfg.gridDim = dim3(static_cast<unsigned>(ctas));
+  cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = s;
   cudaLaunchAttribute attr[1];
@@ -497,6 +521,13 @@ inline int launch_clusters(void (*kernel)(Params...), int n_clusters, int C, siz
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bank kernels' launch: n_clusters clusters of C CTAs of kBankThreads.
+template <typename... Params, typename... Args>
+inline int launch_clusters(void (*kernel)(Params...), int n_clusters, int C, size_t smem, cudaStream_t s,
+                           Args... args) {
+  return launch_cluster_grid(kernel, n_clusters * C, C, kBankThreads, smem, s, args...);
 }
 
 }  // namespace s2pa

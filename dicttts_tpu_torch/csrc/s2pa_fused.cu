@@ -21,6 +21,10 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "s2pa_common.cuh"
+
+// S2PA_PHASES: load q and key_map|logits|softmax|ctx (thread 0's columns)|pron, exit
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -53,12 +57,14 @@ s2pa_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const size_t nl = static_cast<size_t>(n) * L;
+  S2PA_MARK_START(1);
   const float* k_n = k + nl * H;
   const float* v_n = v + nl * H;
 
   for (int h = threadIdx.x; h < H; h += kThreads) q_s[h] = q[static_cast<size_t>(n) * H + h];
   for (int l = threadIdx.x; l < L; l += kThreads) km_s[l] = key_map[nl + l];
   __syncthreads();
+  S2PA_MARK(0, 1);
 
   for (int l = warp; l < L; l += kWarps) {
     const float* r = k_n + static_cast<size_t>(l) * H;
@@ -68,6 +74,7 @@ s2pa_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (lane == 0) p_s[l] = km_s[l] != 0 ? acc : kMaskValue;
   }
   __syncthreads();
+  S2PA_MARK(0, 2);
 
   if (warp == 0) {
     float m = -INFINITY;
@@ -87,12 +94,14 @@ s2pa_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
   __syncthreads();
+  S2PA_MARK(0, 3);
 
   for (int h = threadIdx.x; h < H; h += kThreads) {
     float acc = 0.f;
     for (int l = 0; l < L; ++l) acc = fmaf(p_s[l], v_n[static_cast<size_t>(l) * H + h], acc);
     ctx[static_cast<size_t>(n) * H + h] = acc;
   }
+  S2PA_MARK(0, 4);
   for (int p = threadIdx.x; p < P; p += kThreads) {
     const int32_t sense = pinyin_map[static_cast<size_t>(n) * P + p];
     float acc = 0.f;
@@ -101,6 +110,7 @@ s2pa_fused_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     pron[static_cast<size_t>(n) * P + p] = acc;
   }
+  S2PA_MARK_END(5);
 }
 
 }  // namespace

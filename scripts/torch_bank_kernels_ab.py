@@ -1,55 +1,71 @@
-"""Time the port's S2PA bank kernels, K1 (s2pa_bank_fwd) and K2
-(s2pa_bank_bwd), from several checkouts of the repo on one card, in turns,
-on the same seeded inputs.
+"""Time the port's S2PA kernels from several checkouts of the repo on one
+card, in turns, on the same seeded inputs: the bank kernels K1
+(s2pa_bank_fwd) and K2 (s2pa_bank_bwd), and the fused forward K3
+(s2pa_fused).
 
-    python3 scripts/torch_bank_kernels_ab.py ROOT_A ROOT_B [--rounds 2]
+    python3 scripts/torch_bank_kernels_ab.py ROOT_A ROOT_B [--rounds 2] [--kernels all|bank|fused]
+    python3 scripts/torch_bank_kernels_ab.py --profile ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a dicttts_tpu_torch package: this
 checkout, or an older commit unpacked with `git archive` into a directory
 that .gitignore lists. Each measurement runs in a process of its own that
 imports that root's package and builds its kernels from that root's
 sources, so two versions never share a process; the roots run in the order
-A B B A (A B B A A B ... for more rounds). The cases are the training
-geometry (bank 8000 x 96 x 768, N = 60 x 64 = 3840 slots) in bf16 and f32
-with corpus-like, uniform and Zipf word ids (chip_smoke.word_ids), and the
-serving geometry in bf16 (N = 1000). Inputs, byte bounds
-and timers are chip_smoke.py's (bank_case, bank_bound, time_ms_cold,
-device_ms): a time is the mean device time of 20 calls of the wrapper, L2
-flushed before each; a version that sorts the slots by word id is timed
-on the slot order computed beforehand (the kernel alone), and the sort's
-device time is measured on its own (`sort_ms`). Each version is also
-checked against its own plain version.
+A B B A (A B B A A B ... for more rounds).
+
+K1/K2 cases: the training geometry (bank 8000 x 96 x 768, N = 60 x 64 =
+3840 slots) in bf16 and f32 with corpus-like, uniform and Zipf word ids
+(chip_smoke.word_ids), and the serving geometry in bf16 (N = 1000). A time
+is the mean device time of 20 calls of the wrapper, L2 flushed before each
+(chip_smoke.time_ms_cold); a version that sorts the slots by word id is
+timed on the slot order computed beforehand (the kernel alone), and the
+sort's device time is measured on its own (`sort_ms`).
+
+K3 cases (f32, H = 192, P = 8): the text path at B=1 (Tw 32, L 56: the
+largest of chip_smoke's B=1 calls) and at B=16 (Tw 32, L 56), with the text
+path's mask layout (chip_smoke.text_layout: its share of padded gloss
+tokens and of all-masked pad words), and phase 3's synthetic B=16, T=64,
+L=96. A time is the kernel's own device time per call with L2 flushed
+before each (torch.profiler, chip_smoke.device_ms): the wrapper's host time
+exceeds the kernel's, so events around each call would count it; CUDA
+events around 20 back-to-back calls (warm L2) are given beside it.
+
+Inputs, byte bounds and timers are this checkout's chip_smoke.py's. Each
+version is also checked against its own plain version.
+
+--profile: for each ROOT, build its csrc/s2pa_fused.cu alone with
+-DS2PA_PROFILE (the kernel's clock marks, S2PA_MARK in
+csrc/s2pa_common.cuh; the phase names are the source's `S2PA_PHASES:`
+line) and run it on the K3 cases: per case the profiled build's time
+(events, L2 flushed), the CTAs and SMs used, the median and 90th
+percentile of each phase in cycles, a CTA's life, and the CTAs resident
+per SM.
 
 Prints one JSON line per run and a table with the card's nvidia-smi name
-and power limit. Needs a CUDA card; imports no JAX.
+and power limit. Needs a CUDA card (and nvcc); imports no JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
+import tempfile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CASES = (("bfloat16", "corpus", 3840), ("float32", "corpus", 3840), ("bfloat16", "uniform", 3840),
          ("bfloat16", "zipf", 3840), ("float32", "uniform", 3840), ("float32", "zipf", 3840),
          ("bfloat16", "uniform", 1000))
+# (label, B, T, L, layout)
+K3_CASES = (("text B=1 Tw=32 L=56", 1, 32, 56, "text"), ("text B=16 Tw=32 L=56", 16, 32, 56, "text"),
+            ("synthetic B=16 T=64 L=96", 16, 64, 96, "synthetic"))
 
 
-def worker(root: str) -> dict:
-    """One root's measurements, in this process: the inputs, bounds and
-    timers are chip_smoke.py's (this checkout's), the kernels the root's."""
-    sys.path.insert(0, REPO)
-    import chip_smoke as cs
-
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
-
-    from dicttts_tpu_torch.ops import s2pa_bank as sb
-
-    torch.backends.cuda.matmul.allow_tf32 = False
+def bank_cases(cs, sb, torch):
     takes_slots = hasattr(sb, "slot_order")
     out = []
     for i, (dt, ids, N) in enumerate(CASES):
@@ -78,37 +94,171 @@ def worker(root: str) -> dict:
         out.append(rec)
         del args, g_ctx, g_w, ctx, w, d_qe
         torch.cuda.empty_cache()
-    return {"root": root, "device": torch.cuda.get_device_name(0), "cases": out}
+    return out
+
+
+def k3_inputs(cs, torch, i):
+    label, B, T, L, layout = K3_CASES[i]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED + 100 + i)
+    return cs.fused_case(torch.device("cuda"), gen, B, T, L, layout)
+
+
+def fused_cases(cs, sf, torch):
+    out = []
+    for i, (label, B, T, L, _) in enumerate(K3_CASES):
+        args = k3_inputs(cs, torch, i)
+        got = sf.s2pa_fused(*args)
+        torch.cuda.synchronize()
+        err = max((a - b).abs().max().item() for a, b in zip(got, sf.s2pa_fused_plain(*args)))
+        bound_ms, _, n_bytes = cs.fused_bound(B * T, L, cs.FUSED_H, cs.FUSED_P)
+        rec = {"case": label, "k3_max_abs_err": err, "bound_ms": bound_ms, "mbytes": n_bytes / 1e6,
+               "masked_shares": cs.mask_shares(args[3]),
+               "k3_ms": cs.device_ms(lambda: sf.s2pa_fused(*args), cold=True),
+               "k3_event_ms": cs.time_ms(lambda: sf.s2pa_fused(*args))}
+        if hasattr(sf, "fused_kernel_plan"):
+            rec["plan"] = sf.fused_kernel_plan(B * T, L, cs.FUSED_H, cs.FUSED_P)
+        out.append(rec)
+        del args, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def worker(root: str, kernels: str) -> dict:
+    """One root's measurements, in this process: the inputs, bounds and
+    timers are chip_smoke.py's (this checkout's), the kernels the root's."""
+    sys.path.insert(0, REPO)
+    import chip_smoke as cs
+
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+
+    from dicttts_tpu_torch.ops import s2pa_bank as sb
+    from dicttts_tpu_torch.ops import s2pa_fused as sf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rec = {"root": root, "device": torch.cuda.get_device_name(0)}
+    rec["cases"] = bank_cases(cs, sb, torch) if kernels in ("all", "bank") else []
+    rec["k3_cases"] = fused_cases(cs, sf, torch) if kernels in ("all", "fused") else []
+    return rec
+
+
+def profile(root: str) -> dict:
+    """K3's clock marks from a -DS2PA_PROFILE build of root's s2pa_fused.cu."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from dicttts_tpu_torch.ops import cuda_build
+
+    src = os.path.join(os.path.abspath(root), "dicttts_tpu_torch", "csrc", "s2pa_fused.cu")
+    phases = re.search(r"S2PA_PHASES: (.*)", open(src).read()).group(1).split("|")
+    out = tempfile.mkdtemp(prefix="k3_profile_")
+    so = os.path.join(out, "libprof.so")
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-DS2PA_PROFILE", "-shared", src, "-o", so],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.s2pa_fused.argtypes = [P] * 8 + [I] * 4 + [P]
+    lib.s2pa_prof_copy.argtypes = [P, ctypes.c_size_t]
+    flush = torch.empty(32 << 20, device="cuda")
+    res = []
+    for i, (label, B, T, L, _) in enumerate(K3_CASES):
+        q, k, v, km, pm = k3_inputs(cs, torch, i)
+        N, H, Pn = B * T, q.shape[-1], pm.shape[-1]
+        ctx, w, pron = torch.empty_like(q), torch.empty((B, T, L), device="cuda"), torch.empty((B, T, Pn),
+                                                                                             device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call():
+            rc = lib.s2pa_fused(q.data_ptr(), k.data_ptr(), v.data_ptr(), km.data_ptr(), pm.data_ptr(),
+                                ctx.data_ptr(), w.data_ptr(), pron.data_ptr(), N, L, H, Pn, stream)
+            if rc != 0:
+                raise RuntimeError(f"launch failed: cudaError_t {rc}")
+
+        for _ in range(3):
+            call()
+        times = []
+        for _ in range(10):
+            flush.zero_()
+            lib.s2pa_prof_clear()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            call()
+            e.record()
+            e.synchronize()
+            times.append(s.elapsed_time(e))
+        buf = np.zeros((100000, 16), np.uint64)
+        lib.s2pa_prof_copy(buf.ctypes.data, buf.nbytes)
+        own = buf[buf[:, 12] > 0].astype(np.float64)  # CTAs that ran (a start time)
+        n_marks = len(phases) + 1
+        d = np.diff(own[:, :n_marks], axis=1)
+        t0, t1 = own[:, 12].min(), own[:, 13].max()
+        grid = np.linspace(t0, t1, 40)[5:35]
+        per_sm = [((own[:, 12] <= g) & (own[:, 13] > g) & (own[:, 14] == sm)).sum() for sm in range(132) for g in grid]
+        res.append({
+            "case": label, "ms": float(np.mean(times[1:])), "ctas": int(len(own)),
+            "sms": int(len(np.unique(own[:, 14]))), "span_us": (t1 - t0) / 1e3,
+            "phases": {name: [float(np.median(d[:, j])), float(np.percentile(d[:, j], 90))]
+                       for j, name in enumerate(phases)},
+            "cta_cycles": float(np.median(own[:, n_marks - 1] - own[:, 0])),
+            "cta_us": float(np.median(own[:, 13] - own[:, 12]) / 1e3),
+            "resident_per_sm": [float(np.mean(per_sm)), int(max(per_sm))]})
+    return {"root": root, "device": torch.cuda.get_device_name(0), "profile": res}
+
+
+def run_worker(root: str, *flags: str) -> dict:
+    res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", *flags, root],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
+        raise SystemExit(1)
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def print_profile(rec: dict) -> None:
+    print(f"K3 clock marks, {rec['root']}:")
+    for c in rec["profile"]:
+        print(f"  {c['case']}: profiled build {c['ms']:.4f} ms (events, L2 flushed), {c['ctas']} CTAs on "
+              f"{c['sms']} SMs over {c['span_us']:.2f} us; a CTA's life median {c['cta_cycles']:.0f} cycles, "
+              f"{c['cta_us']:.2f} us; CTAs resident per SM mean {c['resident_per_sm'][0]:.2f}, "
+              f"max {c['resident_per_sm'][1]}")
+        for name, (med, p90) in c["phases"].items():
+            print(f"    {name:36s} median {med:7.0f} cycles, p90 {p90:7.0f}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", choices=("all", "bank", "fused"), default="all")
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
-        print(json.dumps(worker(a.roots[0])), flush=True)
+        rec = profile(a.roots[0]) if a.profile else worker(a.roots[0], a.kernels)
+        print(json.dumps(rec), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    if a.profile:
+        print(f"on {smi}")
+        for root in a.roots:
+            print_profile(run_worker(root, "--profile"))
+        return 0
     order = []
     for r in range(a.rounds):
         order += a.roots if r % 2 == 0 else a.roots[::-1]
     runs = {root: [] for root in a.roots}
     for root in order:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", root],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            print(res.stdout[-2000:], res.stderr[-4000:], file=sys.stderr)
-            return 1
-        rec = json.loads(res.stdout.strip().splitlines()[-1])
-        print(json.dumps(rec), flush=True)
-        runs[root].append(rec)
-    print(f"K1 / K2 device ms, mean of {a.rounds} runs per root (share of the byte bound); on {smi}")
-    for i, (dt, ids, N) in enumerate(CASES):
-        first = runs[a.roots[0]][0]["cases"][i]
-        print(f"  {dt} {ids} N={N} ({first['distinct_rows']} distinct rows; bounds "
+        runs[root].append(run_worker(root, "--kernels", a.kernels))
+    first_run = runs[a.roots[0]][0]
+    if first_run["cases"]:
+        print(f"K1 / K2 device ms, mean of {a.rounds} runs per root (share of the byte bound); on {smi}")
+    for i, first in enumerate(first_run["cases"]):
+        print(f"  {first['case']} ({first['distinct_rows']} distinct rows; bounds "
               f"{first['k1_bound_ms']:.4f} / {first['k2_bound_ms']:.4f} ms)")
         for root in a.roots:
             c = [run["cases"][i] for run in runs[root]]
@@ -118,6 +268,20 @@ def main() -> int:
             print(f"    {root}: K1 {k1:.4f} ({100 * c[0]['k1_bound_ms'] / k1:.1f} %), K2 {k2:.4f} "
                   f"({100 * c[0]['k2_bound_ms'] / k2:.1f} %){sort}; max abs err vs plain "
                   f"{max(x['k1_max_abs_err'] for x in c):.3e} / {max(x['k2_max_abs_err'] for x in c):.3e}")
+    if first_run["k3_cases"]:
+        print(f"K3 device ms with L2 flushed, each run's value (share of the byte bound); events around "
+              f"back-to-back calls after it; on {smi}")
+    for i, first in enumerate(first_run["k3_cases"]):
+        print(f"  {first['case']} ({first['mbytes']:.2f} MB, bound {first['bound_ms']:.4f} ms; masked gloss "
+              f"tokens {100 * first['masked_shares'][0]:.1f} %, all-masked rows "
+              f"{100 * first['masked_shares'][1]:.1f} %)")
+        for root in a.roots:
+            c = [run["k3_cases"][i] for run in runs[root]]
+            ms = " ".join(f"{x['k3_ms']:.4f} ({100 * x['bound_ms'] / x['k3_ms']:.1f} %)" for x in c)
+            ev = " ".join(f"{x['k3_event_ms']:.4f}" for x in c)
+            plan = f"; plan {json.dumps(c[0]['plan'])}" if "plan" in c[0] else ""
+            print(f"    {root}: {ms}; events {ev}; max abs err vs plain "
+                  f"{max(x['k3_max_abs_err'] for x in c):.3e}{plan}")
     return 0
 
 
