@@ -1,7 +1,10 @@
-// Device helpers shared by the S2PA bank kernels (s2pa_bank_fwd.cu,
-// s2pa_bank_bwd.cu): warp reductions, bf16/f32 conversion, 16-byte vector
-// loads widened to f32, and the machinery both kernels use to hold one
-// bank row in the shared memory of a thread-block cluster:
+// Device helpers shared by the S2PA kernels: warp reductions and the
+// transposed eight-way warp sum, bf16/f32 conversion, 16-byte vector loads
+// widened to f32, profile marks, mbarriers, bulk and small asynchronous
+// copies, and the cluster launch (the bank kernels s2pa_bank_fwd.cu and
+// s2pa_bank_bwd.cu, and the fused forward s2pa_fused.cu); then the
+// machinery the two bank kernels use to hold one bank row in the shared
+// memory of a thread-block cluster:
 //
 // - slot grouping: the wrapper passes the word ids sorted stably and their
 //   slots (`ids`, `order`: one torch.sort), so slots that read the same row
@@ -280,6 +283,10 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+
 // Bulk async copy of `bytes` (a multiple of 16, both addresses 16-byte
 // aligned) from global to this CTA's shared memory; completes on `bar`.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
@@ -289,6 +296,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
 }
+
+// 4- and 16-byte asynchronous copies from global to shared memory
+// (cp.async): issued by each thread for its own elements, completed for
+// the thread by cp_async_wait_all (then a barrier makes them visible to
+// the others). Small per-row data fetched this way does not wait in line
+// behind the bulk copies.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::: "memory"); }
 
 // The chunk of sorted slots that cluster `i` owns (see the top of this
 // file). Every warp calls it and gets the same answer. Returns false if the
@@ -498,7 +518,8 @@ template <typename T>
 constexpr int kMaxNit = kMaxE / (32 * Vec16<T>::n);
 
 // Launch `kernel` over `ctas` CTAs of `threads` threads in clusters of C
-// (ctas a multiple of C), with `smem` bytes of dynamic shared memory each.
+// (ctas a multiple of C; C = 1: no cluster attribute, each CTA its own
+// cluster of one), with `smem` bytes of dynamic shared memory each.
 // Returns the cudaError_t.
 template <typename... Params, typename... Args>
 inline int launch_cluster_grid(void (*kernel)(Params...), int ctas, int C, int threads, size_t smem,
@@ -517,7 +538,7 @@ inline int launch_cluster_grid(void (*kernel)(Params...), int ctas, int C, int t
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = C > 1 ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

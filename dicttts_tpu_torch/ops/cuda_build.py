@@ -36,13 +36,14 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # name -> argtypes of the C entry points (the kernels return a cudaError_t
-# as int; s2pa_bank_plan 1 or 0; s2pa_bank_chunks nothing)
+# as int; s2pa_bank_plan and s2pa_fused_plan 1 or 0; s2pa_bank_chunks nothing)
 SIGNATURES = {
     "s2pa_bank_fwd": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "s2pa_bank_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "s2pa_fused": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "s2pa_bank_plan": [_I, _I, _I, _P, _P],
     "s2pa_bank_chunks": [_P, _I, _P],
+    "s2pa_fused_plan": [_I, _I, _I, _I, _P, _P],
 }
 
 

@@ -6,15 +6,22 @@ s2pa_pallas.py``, ``_s2pa_kernel``) with the hand-written CUDA kernel
 onto pinyin slots in one pass per row.
 
 What bounds it on the H100 is bytes: k and v are ``[N, L, H]`` f32 and each
-element feeds one multiply-add. The kernel reads them once and keeps
-logits, weights and the ``[L, P]`` sense one-hot on the SM; unlike the TPU
-kernel it takes any L and P, so no lane padding (``pad_dict_msg``) is done.
+element feeds one multiply-add. The kernel reads them once, by bulk async
+copies into a ring of shared-memory stages issued at a CTA's start, and
+keeps logits, weights and the ``[L, P]`` sense one-hot on the SM; at small
+N it splits a row's L over a cluster of up to 8 CTAs. Unlike the TPU
+kernel it takes any L and P, so no lane padding (``pad_dict_msg``) is done;
+H must be a multiple of 4 (16-byte rows). ``fused_kernel_plan`` asks the
+built library for the kernel's plan of a shape.
 
 ``s2pa_fused`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -54,6 +61,24 @@ def _check(q, k, v, key_map, pinyin_map):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
+@functools.lru_cache(maxsize=256)
+def fused_kernel_plan(N: int, L: int, H: int, P: int) -> dict:
+    """K3's plan for N rows of [L, H] with P pinyin slots, from the kernel
+    library (``choose_fused_plan`` in ``csrc/s2pa_fused.cu``, exported as
+    ``s2pa_fused_plan``): the cluster size C over which a row's L is split,
+    the CTAs launched, the tokens of one bulk copy, the ring's stages, the
+    k tiles of a CTA's slice, threads and shared memory bytes a CTA. Needs
+    the built library (nvcc). Raises ValueError for a shape the kernel does
+    not take."""
+    out, smem = (ctypes.c_int * 6)(), ctypes.c_longlong()
+    ok = cuda_build.library().s2pa_fused_plan(N, L, H, P, out, ctypes.byref(smem))
+    if not ok:
+        raise ValueError(f"K3 does not take N={N}, L={L}, H={H}, P={P}: every axis must be non-empty, H a "
+                         f"multiple of 4, and one CTA's shared memory at most 227 KB (got {smem.value} bytes)")
+    keys = ("cluster", "ctas", "tile_tokens", "stages", "k_tiles", "threads")
+    return {**dict(zip(keys, out)), "smem_bytes": smem.value}
+
+
 def s2pa_fused(q, k, v, key_map, pinyin_map):
     """q: [B, T, H] (pre-scaled); k, v: [B, T, L, H]; key_map: [B, T, L]
     int32; pinyin_map: [B, T, P] int32 -> (ctx [B, T, H], w [B, T, L],
@@ -70,12 +95,15 @@ def s2pa_fused(q, k, v, key_map, pinyin_map):
         raise ValueError("s2pa_fused needs contiguous tensors")
     B, T, H = q.shape
     L, P = k.shape[2], pinyin_map.shape[2]
-    if (H + 2 * L) * 4 > 48 * 1024:
-        raise ValueError(f"H + 2L = {H + 2 * L} exceeds the kernel's 48 KB shared memory")
+    if H % 4 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"s2pa_fused reads 16-byte rows: H must be a multiple of 4 (got {H}) and q, k, v "
+                         f"16-byte aligned")
+    N = B * T
+    if N:
+        fused_kernel_plan(N, L, H, P)  # raises for a shape the kernel does not take
     ctx = torch.empty_like(q)
     w = torch.empty((B, T, L), dtype=q.dtype, device=device)
     pron = torch.empty((B, T, P), dtype=q.dtype, device=device)
-    N = B * T
     if N:
         with torch.cuda.device(device):
             rc = cuda_build.library().s2pa_fused(

@@ -114,6 +114,7 @@ def fused_cases(cs, sf, torch):
         rec = {"case": label, "k3_max_abs_err": err, "bound_ms": bound_ms, "mbytes": n_bytes / 1e6,
                "masked_shares": cs.mask_shares(args[3]),
                "k3_ms": cs.device_ms(lambda: sf.s2pa_fused(*args), cold=True),
+               "k3_cold_event_ms": cs.time_ms_cold(lambda: sf.s2pa_fused(*args)),
                "k3_event_ms": cs.time_ms(lambda: sf.s2pa_fused(*args))}
         if hasattr(sf, "fused_kernel_plan"):
             rec["plan"] = sf.fused_kernel_plan(B * T, L, cs.FUSED_H, cs.FUSED_P)
@@ -269,8 +270,8 @@ def main() -> int:
                   f"({100 * c[0]['k2_bound_ms'] / k2:.1f} %){sort}; max abs err vs plain "
                   f"{max(x['k1_max_abs_err'] for x in c):.3e} / {max(x['k2_max_abs_err'] for x in c):.3e}")
     if first_run["k3_cases"]:
-        print(f"K3 device ms with L2 flushed, each run's value (share of the byte bound); events around "
-              f"back-to-back calls after it; on {smi}")
+        print(f"K3 device ms with L2 flushed (torch.profiler), each run's value (share of the byte bound); "
+              f"then CUDA events around each call (L2 flushed) and around back-to-back calls; on {smi}")
     for i, first in enumerate(first_run["k3_cases"]):
         print(f"  {first['case']} ({first['mbytes']:.2f} MB, bound {first['bound_ms']:.4f} ms; masked gloss "
               f"tokens {100 * first['masked_shares'][0]:.1f} %, all-masked rows "
@@ -278,9 +279,10 @@ def main() -> int:
         for root in a.roots:
             c = [run["k3_cases"][i] for run in runs[root]]
             ms = " ".join(f"{x['k3_ms']:.4f} ({100 * x['bound_ms'] / x['k3_ms']:.1f} %)" for x in c)
+            cold = " ".join(f"{x['k3_cold_event_ms']:.4f}" for x in c)
             ev = " ".join(f"{x['k3_event_ms']:.4f}" for x in c)
             plan = f"; plan {json.dumps(c[0]['plan'])}" if "plan" in c[0] else ""
-            print(f"    {root}: {ms}; events {ev}; max abs err vs plain "
+            print(f"    {root}: {ms}; events around each call, L2 flushed {cold}; back to back {ev}; max abs err vs plain "
                   f"{max(x['k3_max_abs_err'] for x in c):.3e}{plan}")
     return 0
 

@@ -19,6 +19,12 @@ memory of a cluster of CTAs, so the cases cover the grouping (uniform ids,
 every slot the same id, Zipf ids: chunks of one, of many, and split
 chunks), L not a multiple of the cluster size, the training geometry in
 bf16, bitwise repeatability and an all-masked slot's zero gradient.
+
+K3 splits a row's L over a cluster at small N, streams k and v through a
+ring of stages when a slice does not fit, and serves several rows per CTA
+when N exceeds what the card holds at once, so its cases are chosen by the
+kernel's own plan (fused_kernel_plan) to cover each of those paths, with
+all-masked rows, odd widths (L = 13, P = 6, H = 40) and a width past 1024.
 """
 
 import numpy as np
@@ -27,7 +33,7 @@ import torch
 
 from dicttts_tpu_torch.ops.s2pa_bank import (s2pa_bank_attend, s2pa_bank_bwd, s2pa_bank_bwd_plain,
                                              s2pa_bank_fwd, s2pa_bank_fwd_plain)
-from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
+from dicttts_tpu_torch.ops.s2pa_fused import fused_kernel_plan, s2pa_fused, s2pa_fused_plain
 
 pytestmark = pytest.mark.gpu
 
@@ -248,3 +254,104 @@ def test_fused_kernel_matches_plain(cuda, shape):
     assert s2pa_fused.launches == before + 1
     for a, b in zip(out, s2pa_fused_plain(q, k, v, km, pm)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def _fused_args(device, seed, B, T, L, H, P, pad_rows=0):
+    """K3 inputs: key_map in 0-3 with its first token 1, row (0, 0)
+    all-masked, and the last ``pad_rows`` rows of each batch row all-masked
+    with pinyin_map 0 (the text path's pad words); pinyin_map 1 1 2 2 3 3 0 0
+    repeated over P."""
+    rng = np.random.RandomState(seed)
+    q = (rng.randn(B, T, H) / np.sqrt(H)).astype(np.float32)
+    k = rng.randn(B, T, L, H).astype(np.float32)
+    v = rng.randn(B, T, L, H).astype(np.float32)
+    km = rng.randint(0, 4, (B, T, L)).astype(np.int32)
+    km[:, :, 0] = 1
+    km[0, 0] = 0
+    pm = np.tile(np.resize(np.array([1, 1, 2, 2, 3, 3, 0, 0], np.int32), P), (B, T, 1))
+    if pad_rows:
+        km[:, T - pad_rows:] = 0
+        pm[:, T - pad_rows:] = 0
+    return tuple(torch.tensor(a, device=device) for a in (q, k, v, km, pm))
+
+
+# (B, T, L, H, P, pad rows, the plan's path): "cluster" splits a row's L over
+# C > 1 CTAs, "stream" refills the ring within a row, "rows" serves several
+# rows per CTA
+FUSED_PATHS = [
+    ((1, 32, 56, 192, 8, 4), "cluster"),   # the text path's B=1 geometry
+    ((1, 16, 56, 192, 8, 3), "cluster"),
+    ((1, 15, 13, 192, 6, 2), "cluster"),   # odd L and P
+    ((2, 3, 7, 40, 5, 1), "cluster"),      # H = 40, P = 5: a padded [ctx | pron] column group
+    ((4, 100, 200, 192, 8, 10), "stream"),
+    ((1, 2, 6000, 192, 8, 0), "stream"),   # rows too long for a cluster's rings: one CTA a row
+    ((4, 150, 96, 192, 8, 20), "rows"),    # N = 600: more rows than CTAs
+    ((16, 32, 56, 192, 8, 6), "whole"),    # the text path's B=16 geometry: all of k issued at once
+    ((1, 2, 3, 1032, 8, 0), "whole"),      # H past 1024: a thread owns several column groups
+]
+
+
+@pytest.mark.parametrize("shape, path", FUSED_PATHS)
+def test_fused_kernel_paths_match_plain(cuda, shape, path):
+    B, T, L, H, P, pad = shape
+    plan = fused_kernel_plan(B * T, L, H, P)
+    taken = {"cluster": plan["cluster"] > 1, "stream": plan["stages"] < 2 * plan["k_tiles"],
+             "rows": plan["ctas"] < B * T * plan["cluster"], "whole": plan["stages"] >= plan["k_tiles"]}
+    assert taken[path], plan
+    args = _fused_args(cuda, 3, B, T, L, H, P, pad)
+    before = s2pa_fused.launches
+    out = s2pa_fused(*args)
+    torch.cuda.synchronize()
+    assert s2pa_fused.launches == before + 1
+    ref = s2pa_fused_plain(*args)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    w = out[1]
+    torch.testing.assert_close(w[0, 0], torch.full((L,), 1.0 / L, device=cuda), rtol=0, atol=1e-7)  # all-masked
+    if pad:  # pad words: uniform weights over their own L, no pron
+        torch.testing.assert_close(w[:, T - pad:], torch.full_like(w[:, T - pad:], 1.0 / L), rtol=0, atol=1e-7)
+        assert (out[2][:, T - pad:] == 0).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 56, 192, 8), (16, 64, 96, 192, 8), (4, 100, 200, 192, 8)])
+def test_fused_kernel_is_bitwise_repeatable(cuda, shape):
+    args = _fused_args(cuda, 4, *shape)
+    first = s2pa_fused(*args)
+    second = s2pa_fused(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_fused_kernel_rejects_unaligned_width(cuda):
+    with pytest.raises(ValueError):  # H not a multiple of 4
+        s2pa_fused(*_fused_args(cuda, 5, 1, 4, 8, 30, 8))
+    q, k, v, km, pm = _fused_args(cuda, 5, 1, 4, 8, 32, 8)
+    k_off = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)  # 4 bytes past an aligned address
+    k_off.copy_(k)
+    with pytest.raises(ValueError):
+        s2pa_fused(q, k_off, v, km, pm)
+    with pytest.raises(ValueError):
+        fused_kernel_plan(4, 8, 30, 8)
+
+
+def test_fused_kernel_plan(cuda):
+    """The plan at the three measured shapes: B=1 text path (N = 32, L = 56)
+    split over clusters of 8 (6 consumer warps and a producer warp a CTA)
+    with every copy issued at once; B=16 text path
+    (N = 512, L = 56) one CTA a row, four CTAs an SM, all of k issued at
+    once; phase 3 (N = 1024, L = 96) 4 x 132 CTAs serving two rows each,
+    streaming."""
+    b1 = fused_kernel_plan(32, 56, 192, 8)
+    assert (b1["cluster"], b1["ctas"], b1["threads"]) == (8, 256, 224)
+    assert b1["stages"] == 2 * b1["k_tiles"]
+    b16 = fused_kernel_plan(512, 56, 192, 8)
+    assert (b16["cluster"], b16["ctas"]) == (1, 512)
+    assert b16["stages"] >= b16["k_tiles"] and 4 * (b16["smem_bytes"] + 1024) <= 228 * 1024
+    p3 = fused_kernel_plan(1024, 96, 192, 8)
+    assert (p3["cluster"], p3["ctas"]) == (1, 4 * 132)
+    assert p3["stages"] < 2 * p3["k_tiles"] and 4 * (p3["smem_bytes"] + 1024) <= 228 * 1024
+    for shape in ((8, 1, 12284, 1), (1, 6142, 4, 8), (3, 6048, 192, 200)):  # the old kernel's limits
+        assert fused_kernel_plan(*shape)["smem_bytes"] <= 227 * 1024
+    for shape in ((192, 96, 192, 8), (2, 6000, 192, 8)):  # a cluster only where its slices fit whole
+        plan = fused_kernel_plan(*shape)
+        assert plan["cluster"] == 1 or plan["stages"] == 2 * plan["k_tiles"]

@@ -126,6 +126,35 @@ def test_fused_wrapper_odd_widths_and_cpu_route():
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
 
 
+def test_fused_plain_matches_pallas_at_the_text_b1_geometry():
+    """The text path's B=1 call (Tw bucketed to 16, L to 56, P to 8) at a
+    narrow H: BOS and EOS rows with maps 1 over the utterance's widest gloss,
+    words with glosses of 1-56 tokens and 1-3 senses, and the Tw-padding
+    slots all-masked with pinyin_map 0."""
+    rng = np.random.RandomState(6)
+    T, L, H, P, n = 16, 56, 32, 8, 13  # 11 characters + BOS + EOS
+    q = (rng.randn(1, T, H) / np.sqrt(H)).astype(np.float32)
+    k = rng.randn(1, T, L, H).astype(np.float32)
+    v = rng.randn(1, T, L, H).astype(np.float32)
+    km = np.zeros((1, T, L), np.int32)
+    pm = np.zeros((1, T, P), np.int32)
+    glen = np.floor(rng.triangular(1, 1, 57, n - 2)).astype(int)
+    glen[0] = L  # the widest gloss fills the bucket
+    senses = rng.randint(1, 4, n - 2)
+    km[0, [0, n - 1]] = 1
+    pm[0, [0, n - 1], :2 * senses.max()] = 1
+    for i, (g, ns) in enumerate(zip(glen, senses), 1):
+        km[0, i, :g] = np.arange(g) * ns // g + 1
+        pm[0, i, :2 * ns] = np.repeat(np.arange(1, ns + 1), 2)
+    ref = jax_s2pa_fused(*map(jnp.asarray, (q, k, v, km, pm)), tile_r=8, interpret=True)
+    out = s2pa_fused_plain(*_torch(q, k, v, km, pm))
+    for a, b in zip(out, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    w, pron = out[1].numpy(), out[2].numpy()
+    np.testing.assert_allclose(w[0, n:], 1.0 / L, atol=1e-7)  # pad slots: uniform over their own L
+    assert (pron[0, n:] == 0).all()
+
+
 @pytest.mark.parametrize("bad", ["k_shape", "km_dtype", "v_dtype", "meta"])
 def test_fused_wrapper_rejects(bad):
     q, k, v, km, pm = _torch(*_fused_inputs(2))
