@@ -13,7 +13,8 @@ Phases, each announced on its own line:
     (bank 8000 x 96 x 768, N = 1000 word slots), bf16 and f32, then timed
     with L2 flushed before each call, beside its byte bound;
  3. K3 (s2pa_fused) against its plain version at B=16, T=64, L=96, H=192,
-    P=8, f32, then timed;
+    P=8, f32, then timed, with the kernel's plan (cluster size, CTAs,
+    ring);
  4. serving at full production width with seeded random weights on the
     device-resident bf16 bank: three batches (B=1/Tw=32, B=4/Tw=48,
     B=16/Tw=64) word ids -> wav, K1 launched once per batch; one request
@@ -63,7 +64,9 @@ Phases, each announced on its own line:
     recipe) and with use_pallas_s2pa (K3 once per call, eager never); the
     two runs' frame counts and pinyin equal and their mels close; per-stage
     ms, RTF, the bf16 vocoder's time and deviation, and K3 alone at the
-    inferencer's own shape. Tone sandhi runs through jieba where it
+    inferencer's own shapes (the largest B=1 call and the first B=16 batch),
+    with its plan, and on the kernel A/B script's seeded B=16 case of the
+    same layout. Tone sandhi runs through jieba where it
     imports, else from the committed overrides of those sentences
     (tests/sandhi_per_test_set.json); the route is printed. (b) run.main on
     the corpus with per-utterance gathered banks (use_device_dict_bank
@@ -404,30 +407,33 @@ def check_bank_case(args, g_ctx, g_w, label, smi, bwd=True):
     return rec
 
 
-def check_fused_kernel(device, gen):
+def k3_case(args, label, smi):
+    """K3 alone on one call's own inputs: against its plain version, its
+    device time with L2 flushed before each call (torch.profiler: the
+    wrapper's host time exceeds the kernel's, and the text path's inputs
+    fit in the 50 MB L2), CUDA events around 20 back-to-back calls beside
+    it, the plain version's time, the byte bound and the kernel's plan."""
     from dicttts_tpu_torch.ops.s2pa_fused import fused_kernel_plan, s2pa_fused, s2pa_fused_plain
 
-    B, T, L, H, P = 16, 64, 96, FUSED_H, FUSED_P
-    args = fused_case(device, gen, B, T, L)
+    (B, T, H), L, P = args[0].shape, args[1].shape[2], args[4].shape[2]
     out = s2pa_fused(*args)
-    torch.cuda.synchronize()
     ref = s2pa_fused_plain(*args)
-    err = max((a - b).abs().max().item() for a, b in zip(out, ref))
-    say(f"K3 s2pa_fused float32: max abs err {err:.3e} (tol 1e-5, the JAX package's own)")
-    if not err <= 1e-5 or not all(torch.isfinite(o).all() for o in out):
-        raise AssertionError("K3 disagrees with its plain version")
-    ms = time_ms(lambda: s2pa_fused(*args))
-    plain_ms = time_ms(lambda: s2pa_fused_plain(*args))
-    cold_ms = device_ms(lambda: s2pa_fused(*args), cold=True)
+    err = max((x - y).abs().max().item() for x, y in zip(out, ref))
+    ms = device_ms(lambda: s2pa_fused(*args), cold=True)
+    plain_ms = device_ms(lambda: s2pa_fused_plain(*args), cold=True)
+    event_ms = time_ms(lambda: s2pa_fused(*args))
     bound_ms, bound_by, n_bytes = fused_bound(B * T, L, H, P)
     plan = fused_kernel_plan(B * T, L, H, P)
-    say(f"K3: kernel {ms:.4f} ms (events around back-to-back calls; its device time with L2 flushed "
-        f"{cold_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{n_bytes / 1e6:.1f} MB); plan {json.dumps(plan)}")
-    return {"name": "s2pa_fused", "route": "cuda", "source": "dicttts_tpu_torch/csrc/s2pa_fused.cu",
-            "replaces": "dicttts_tpu/ops/s2pa_pallas.py:104", "max_abs_err": err,
-            "ms": ms, "device_ms_cold": cold_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": None, "plan": plan}
+    masked, empty = mask_shares(args[3])
+    case = f"{label} B={B} Tw={T} L={L} H={H} P={P}"
+    say(f"K3 at {case}: max abs err {err:.3e} (tol 1e-5), kernel {ms:.4f} ms of device time with L2 flushed "
+        f"(events around back-to-back calls: {event_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}; {n_bytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f} % of the bound; masked gloss tokens "
+        f"{100 * masked:.1f} %, all-masked rows {100 * empty:.1f} %; plan {json.dumps(plan)}; on {smi}")
+    if not err <= 1e-5:
+        raise AssertionError(f"K3 disagrees with its plain version at {case}")
+    return {"case": case, "max_abs_err": err, "ms": ms, "event_ms": event_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "masked_shares": [masked, empty], "plan": plan}
 
 
 def check_bank_autograd(args):
@@ -1030,11 +1036,12 @@ def check_wavs(results, texts, hop):
 def text_to_wav(root, binary, work_dir, smi):
     """Phase 9a: DictTTSInferencer, text -> wav at the recipe's width on
     phase 8's newest checkpoint, eager S2PA (the recipe) and K3. Returns the
-    K3 record at the inferencer's shape, K3's launches and the report."""
+    K3 records at the inferencer's shapes (the largest B=1 call, the first
+    B=16 batch), K3's launches and the report."""
     import dicttts_tpu_torch.models.dict_encoder as dict_encoder
     from dicttts_tpu_torch.infer import DictTTSInferencer
     from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
-    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
     from dicttts_tpu_torch.utils.checkpoint import get_last_checkpoint, load_checkpoint
     from dicttts_tpu_torch.vocoders.hifigan import HifiGanVocoder, load_wav, spec2wav
 
@@ -1070,15 +1077,15 @@ def text_to_wav(root, binary, work_dir, smi):
         synth_run(inf, texts[:n_b1], 1, 0)  # warm-up: every shape the timed runs meet
         synth_run(inf, texts, 16, 1000)
         s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
-        b1, b1_s, b1_stages = synth_run(inf, texts[:n_b1], 1, 0)
-        k3_b1 = s2pa_fused.launches
-        s2pa_fused.launches = 0
-        if use_pallas:  # the B=16 batches' K3 inputs, for K3 alone below
+        if use_pallas:  # every call's K3 inputs, for K3 alone below
             def capture(*args):
                 k3_inputs.append(args)
                 return s2pa_fused(*args)
             dict_encoder.s2pa_fused = capture
         try:
+            b1, b1_s, b1_stages = synth_run(inf, texts[:n_b1], 1, 0)
+            k3_b1 = s2pa_fused.launches
+            s2pa_fused.launches = 0
             b16, b16_s, b16_stages = synth_run(inf, texts, 16, 1000)
         finally:
             dict_encoder.s2pa_fused = s2pa_fused
@@ -1146,30 +1153,15 @@ def text_to_wav(root, binary, work_dir, smi):
         raise AssertionError("K3 and eager S2PA mels disagree")
     report["k3_vs_eager_max_dmel"] = worst
 
-    args = tuple(a.contiguous() for a in k3_inputs[0])  # the first B=16 batch's own inputs
-    (B, T, H), L, P = args[0].shape, args[1].shape[2], args[4].shape[2]
-    out = s2pa_fused(*args)
-    ref = s2pa_fused_plain(*args)
-    err = max((x - y).abs().max().item() for x, y in zip(out, ref))
-    # the inputs (45 MB) fit in the 50 MB L2, and the wrapper's host time
-    # exceeds the kernel's: the kernel's own device time with L2 flushed
-    # before each call (profiler), and CUDA events around 20 back-to-back
-    # calls beside it, which count the host's launch gaps
-    ms = device_ms(lambda: s2pa_fused(*args), cold=True)
-    plain_ms = device_ms(lambda: s2pa_fused_plain(*args), cold=True)
-    event_ms = time_ms(lambda: s2pa_fused(*args))
-    N = B * T
-    n_bytes = 4 * (N * H + 2 * N * L * H + N * L + N * P + N * H + N * L + N * P)
-    bound_ms, bound_by = bound(n_bytes, 4.0 * N * L * H + 2.0 * N * L * P, "float32")
-    say(f"K3 at the inferencer's shape B={B} Tw={T} L={L} H={H} P={P}: max abs err {err:.3e} (tol 1e-5), "
-        f"kernel {ms:.4f} ms of device time with L2 flushed (events around back-to-back calls: "
-        f"{event_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
-        f"{n_bytes / 1e6:.2f} MB), {100 * bound_ms / ms:.1f} % of the bound; on {smi}")
-    if not err <= 1e-5:
-        raise AssertionError("K3 disagrees with its plain version at the inferencer's shape")
-    k3_case = {"case": f"text path B={B} Tw={T} L={L} H={H} P={P}", "max_abs_err": err, "ms": ms,
-               "event_ms": event_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
-    return k3_case, report["k3"]["k3_launches"], report
+    # K3 alone on the largest B=1 call's and the first B=16 batch's own inputs,
+    # and on the A/B script's seeded B=16 case of the same layout
+    # (scripts/torch_bank_kernels_ab.py, K3_CASES[1]), which a fresh process times
+    b1_args = max(k3_inputs[:n_b1], key=lambda a: a[1].shape[1] * a[1].shape[2])
+    cases = [k3_case(tuple(a.contiguous() for a in args), "text path", smi)
+             for args in (b1_args, k3_inputs[n_b1])]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 101)
+    seeded = k3_case(fused_case(torch.device("cuda"), gen, 16, 32, 56, "text"), "seeded text layout", smi)
+    return [*cases, seeded], report["k3"]["k3_launches"], report
 
 
 def gathered_training(root, binary, smi, recipe_report):
@@ -1256,7 +1248,7 @@ def main() -> int:
         del args
         torch.cuda.empty_cache()
     say("phase 3: K3 s2pa_fused vs plain at B=16 T=64 L=96 H=192 P=8")
-    k3 = check_fused_kernel(device, gen)
+    k3_phase3 = k3_case(fused_case(device, gen, 16, 64, 96), "synthetic", smi)
 
     say("phase 4: full-width serving on the device bank (random weights, seed %d)" % SEED)
     torch.manual_seed(SEED)
@@ -1329,7 +1321,7 @@ def main() -> int:
     say(f"gathered batch B=4 Tw=48: {dt * 1e3:.2f} ms, frames {[r.n_frames for r in results]}")
     if s2pa_fused.launches != 1 or s2pa_bank_fwd.launches != 0:
         raise AssertionError(f"gathered path launched K3 {s2pa_fused.launches} times")
-    k3["launches"] = s2pa_fused.launches
+    k3_gathered = s2pa_fused.launches
     del server, bank, acoustic, vocoder, batches, results
     torch.cuda.empty_cache()
     say(f"phases 0-5 done at {time.time() - T_START:.1f} s")
@@ -1379,7 +1371,7 @@ def main() -> int:
         binary, work_dir = os.path.join(root, "binary"), os.path.join(root, "checkpoints", "recipe")
         say("phase 9a: Chinese text -> wav through DictTTSInferencer on phase 8's checkpoint, the PER "
             "test sentences, eager S2PA (the recipe) and K3")
-        k3_text, k3_text_launches, text_report = text_to_wav(root, binary, work_dir, smi)
+        k3_text_cases, k3_text_launches, text_report = text_to_wav(root, binary, work_dir, smi)
         say("phase 9a report " + json.dumps(text_report))
         say(f"phase 9a done at {time.time() - T_START:.1f} s")
         say("phase 9b: run.main on the corpus with gathered banks (use_device_dict_bank=False)")
@@ -1408,15 +1400,16 @@ def main() -> int:
                         # K1's slot order (one torch.sort, shared with K2) is timed apart
                         **({"sort_ms": main_["sort_ms"]} if "sort_ms" in main_ else {}),
                         "main_case": main_case["case"], "cases": by_case})
-    # K3's own path is the inferencer's: its numbers are taken at that shape
-    phase3 = {k: k3.pop(k) if k == "device_ms_cold" else k3[k]
-              for k in ("max_abs_err", "ms", "device_ms_cold", "plain_ms", "bound_ms", "bound_by")}
-    k3["launches_by_path"] = {"gathered_serving": k3["launches"], "text": k3_text_launches,
-                              **{path: n[2] for path, n in recipe_launches.items()}}
-    k3.update({k: v for k, v in k3_text.items() if k != "case"})
-    k3.update(launches=sum(k3["launches_by_path"].values()), main_case=k3_text["case"],
-              max_abs_err=max(k3_text["max_abs_err"], phase3["max_abs_err"]),
-              cases=[{"case": "synthetic B=16 Tw=64 L=96 H=192 P=8", **phase3}, k3_text])
+    # K3's own path is the inferencer's: its numbers are taken at its first B=16 batch
+    k3_cases = [k3_phase3, *k3_text_cases]
+    k3_main = k3_text_cases[1]
+    k3_launches = {"gathered_serving": k3_gathered, "text": k3_text_launches,
+                   **{path: n[2] for path, n in recipe_launches.items()}}
+    k3 = {"name": "s2pa_fused", "route": "cuda", "source": "dicttts_tpu_torch/csrc/s2pa_fused.cu",
+          "replaces": "dicttts_tpu/ops/s2pa_pallas.py:104", "launches": sum(k3_launches.values()),
+          "launches_by_path": k3_launches, **{k: v for k, v in k3_main.items() if k != "case"},
+          "max_abs_err": max(c["max_abs_err"] for c in k3_cases), "library_ms": None,
+          "main_case": k3_main["case"], "cases": k3_cases}
     print(json.dumps({"kernels": [*kernels, k3], "corpus": corpus}), flush=True)
     print(f"chip_smoke total {time.time() - T_START:.1f} s", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

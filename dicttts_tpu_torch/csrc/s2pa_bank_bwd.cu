@@ -146,11 +146,12 @@ int launch_bwd(int nit, int n, int C, size_t smem, cudaStream_t s, const void* b
     if (nit > NIT)
       return launch_bwd<T, NIT + 1>(nit, n, C, smem, s, bank, ids, order, qe, km, mask, g_ctx, g_w, d_qe, L, E);
   }
-  return launch_clusters(s2pa_bank_bwd_kernel<T, NIT>, n, C, smem, s, static_cast<const T*>(bank),
-                         static_cast<const int32_t*>(ids), static_cast<const int64_t*>(order),
-                         static_cast<const T*>(qe), static_cast<const int32_t*>(km),
-                         static_cast<const float*>(mask), static_cast<const T*>(g_ctx),
-                         static_cast<const float*>(g_w), static_cast<T*>(d_qe), n, L, E);
+  return launch_cluster_grid(s2pa_bank_bwd_kernel<T, NIT>, n * C, C, kBankThreads, smem, s,
+                             static_cast<const T*>(bank), static_cast<const int32_t*>(ids),
+                             static_cast<const int64_t*>(order), static_cast<const T*>(qe),
+                             static_cast<const int32_t*>(km),
+                             static_cast<const float*>(mask), static_cast<const T*>(g_ctx),
+                             static_cast<const float*>(g_w), static_cast<T*>(d_qe), n, L, E);
 }
 
 }  // namespace

@@ -151,11 +151,12 @@ int launch_fwd(int nit, int n, int C, size_t smem, cudaStream_t s, const void* b
   if constexpr (NIT < kMaxNit<T>) {
     if (nit > NIT) return launch_fwd<T, NIT + 1>(nit, n, C, smem, s, bank, ids, order, qe, km, mask, ctx, w, L, E);
   }
-  return launch_clusters(s2pa_bank_fwd_kernel<T, NIT>, n, C, smem, s, static_cast<const T*>(bank),
-                         static_cast<const int32_t*>(ids), static_cast<const int64_t*>(order),
-                         static_cast<const T*>(qe), static_cast<const int32_t*>(km),
-                         static_cast<const float*>(mask), static_cast<T*>(ctx), static_cast<float*>(w), n,
-                         L, E);
+  return launch_cluster_grid(s2pa_bank_fwd_kernel<T, NIT>, n * C, C, kBankThreads, smem, s,
+                             static_cast<const T*>(bank), static_cast<const int32_t*>(ids),
+                             static_cast<const int64_t*>(order), static_cast<const T*>(qe),
+                             static_cast<const int32_t*>(km),
+                             static_cast<const float*>(mask), static_cast<T*>(ctx), static_cast<float*>(w), n,
+                             L, E);
 }
 
 }  // namespace

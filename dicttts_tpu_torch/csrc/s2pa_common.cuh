@@ -156,21 +156,21 @@ __device__ __forceinline__ unsigned prof_smid() {
   asm volatile("mov.u32 %0, %%smid;" : "=r"(s));
   return s;
 }
-#define S2PA_MARK(k, i)                    \
-  do {                                     \
-    if ((k) == 0) ::s2pa::prof_put(i, clock64());  \
+#define S2PA_MARK(k, i)                                            \
+  do {                                                             \
+    if ((k) == 0) ::s2pa::prof_put(i, clock64());                  \
   } while (0)
-#define S2PA_MARK_START(count)                                \
-  do {                                                        \
-    ::s2pa::prof_put(0, clock64());                           \
-    ::s2pa::prof_put(12, ::s2pa::prof_globaltimer());         \
-    ::s2pa::prof_put(14, ::s2pa::prof_smid());                \
-    ::s2pa::prof_put(15, static_cast<unsigned long long>(count)); \
+#define S2PA_MARK_START(count)                                     \
+  do {                                                             \
+    ::s2pa::prof_put(0, clock64());                                \
+    ::s2pa::prof_put(12, ::s2pa::prof_globaltimer());              \
+    ::s2pa::prof_put(14, ::s2pa::prof_smid());                     \
+    ::s2pa::prof_put(15, static_cast<unsigned long long>(count));  \
   } while (0)
-#define S2PA_MARK_END(i)              \
-  do {                                \
-    ::s2pa::prof_put(i, clock64());   \
-    ::s2pa::prof_put(13, ::s2pa::prof_globaltimer()); \
+#define S2PA_MARK_END(i)                                           \
+  do {                                                             \
+    ::s2pa::prof_put(i, clock64());                                \
+    ::s2pa::prof_put(13, ::s2pa::prof_globaltimer());              \
   } while (0)
 }  // namespace s2pa
 // Read and clear the marks (host).
@@ -542,13 +542,6 @@ inline int launch_cluster_grid(void (*kernel)(Params...), int ctas, int C, int t
   err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The bank kernels' launch: n_clusters clusters of C CTAs of kBankThreads.
-template <typename... Params, typename... Args>
-inline int launch_clusters(void (*kernel)(Params...), int n_clusters, int C, size_t smem, cudaStream_t s,
-                           Args... args) {
-  return launch_cluster_grid(kernel, n_clusters * C, C, kBankThreads, smem, s, args...);
 }
 
 }  // namespace s2pa

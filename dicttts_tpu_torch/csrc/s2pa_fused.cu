@@ -19,22 +19,28 @@
 // most 32 of the 132 SMs; its clock marks put over half of a block's life
 // in the logits and most of the rest in the ctx walk. This design:
 //
-// - bytes in flight from the start: thread 0 of each CTA issues bulk async
-//   copies (cp.async.bulk ... mbarrier::complete_tx) of its k tiles and
-//   then its v tiles into a ring of S stages in shared memory, one mbarrier
-//   a stage. A tile is `tt` whole tokens (about 8 KB). The ring takes what
-//   the R CTAs planned for an SM leave of its shared memory: where a
-//   slice's k and v fit, every copy is issued at once and v arrives while
-//   the logits and the softmax run; else the slice streams, each stage
-//   refilled with the next tile (the next row's k after this row's v) as
-//   soon as every thread is done with it.
-// - every thread busy on 16-byte shared-memory reads: 192 threads; the
-//   logits take eight tokens a warp at a time, lanes along H in float4 with
-//   q from shared memory, reduced by one transposed butterfly
-//   (sum8_transposed); the ctx pass gives thread (g, p) column group g (4
-//   columns) and every Pg-th token of each tile, Pg = 192 / (H / 4) (4 at
-//   H = 192: all threads), accumulated in shared memory across tiles and
-//   summed over p in order at the end. No thread walks L alone.
+// - bytes in flight from the start: a producer warp issues bulk async
+//   copies (cp.async.bulk ... mbarrier::complete_tx) of a row's k tiles
+//   and then its v tiles into a ring of S stages in shared memory, a
+//   "full" mbarrier a stage; six consumer warps compute and release each
+//   stage on its "empty" mbarrier, so neither side waits for the other at
+//   a block-wide barrier. A tile is `tt` whole tokens (about 8 KB). The
+//   ring takes what the R CTAs planned for an SM leave of its shared
+//   memory: where a slice's k and v fit, every copy is issued at once and
+//   v arrives while the logits and the softmax run; else the slice
+//   streams, each stage refilled with the next tile (the next row's k
+//   after this row's v) as soon as all six warps have released it. A
+//   row's q, key_map and pinyin_map come by cp.async, queued ahead of the
+//   bulk copies (behind them they waited ~11 us at B=16), the next row's
+//   while this one runs.
+// - every thread busy on 16-byte shared-memory reads: 192 consumer
+//   threads; the logits take eight tokens a warp at a time, lanes along H
+//   in float4 with q from shared memory, reduced by one transposed
+//   butterfly (sum8_transposed); the ctx pass gives thread (g, p) column
+//   group g (4 columns) and every Pg-th token of each tile, Pg = 192 /
+//   (H / 4) (4 at H = 192: all threads), accumulated in shared memory
+//   across tiles and summed over p in order at the end. No thread walks L
+//   alone.
 // - the card filled at small N: a row's L gloss tokens are split over a
 //   cluster of C CTAs (C doubles up to 8 while N * C < 264 and each CTA
 //   keeps at least 4 tokens; the B=1 text path gets C = 8). Each CTA
@@ -45,7 +51,7 @@
 //   rank order and stores. At large N, C = 1 and at most 4 x 132 CTAs,
 //   each serving rows n, n + grid, ...: no launch waves, and the ring
 //   prefetches a CTA's next row while it finishes this one.
-// - the plan (C, R, the grid, tile tokens, stages, shared memory;
+// - the plan (C, the grid, tile tokens, stages, shared memory;
 //   `choose_fused_plan`) is computed here only: the entry point launches
 //   with it, and the library exports it (`s2pa_fused_plan`), which
 //   dicttts_tpu_torch/ops/s2pa_fused.py::fused_kernel_plan calls to check
@@ -77,11 +83,11 @@ constexpr int kPmCache = 256;              // pinyin_map entries a row fetches a
 // q [2, H]; the ctx accumulators [Pg, H]; with C > 1 the partial [ctx |
 // pron] [Gm float4 groups] and the receive buffer [C, Hcg float4 groups];
 // the slice's logits, then weights [Lc]; its key_map [2, Lc]; pinyin_map
-// [2, min(P, kPmCache)]; reduction scratch; S full and S empty mbarriers. q, key_map and
-// pinyin_map are double-buffered: the next row's arrive while this one
-// runs. R: the CTAs an SM is planned to hold; grid: CTAs launched.
+// [2, min(P, kPmCache)]; reduction scratch; S full and S empty
+// mbarriers. q, key_map and pinyin_map are double-buffered: the next
+// row's arrive while this one runs. grid: the CTAs launched.
 struct FusedPlan {
-  int C, R, grid, Lc, tt, nt, S, Pg, Gm, Hcg;
+  int C, grid, Lc, tt, nt, S, Pg, Gm, Hcg;
   size_t q, acc, part, recv, x, km, pm, red, bars, total;
 };
 
@@ -92,7 +98,7 @@ __host__ __device__ inline long long lmax(long long a, long long b) { return a >
 __host__ __device__ inline FusedPlan fused_layout(int L, int H, int P, int C, int S) {
   FusedPlan f;
   f.C = C;
-  f.R = f.grid = 0;
+  f.grid = 0;
   f.Lc = (L + C - 1) / C;
   f.tt = static_cast<int>(lmin(f.Lc, lmax(1, kTileBytes / (H * 4))));
   f.nt = (f.Lc + f.tt - 1) / f.tt;
@@ -119,7 +125,7 @@ __host__ __device__ inline FusedPlan fused_layout(int L, int H, int P, int C, in
 // tokens; R = ceil(N * C / kSms) CTAs an SM, at most kMaxResident; the
 // ring takes what R CTAs leave of an SM's shared memory, at least one
 // tile, at most the slice's k and v; with C > 1 it must hold all of them
-// (a cluster's CTAs never refill, so the producer warps have exited by the
+// (a cluster's producer warps then never wait on the consumers, who sit in
 // cluster syncs), else C halves; the grid is min(N, kSms * R / C)
 // clusters, each serving rows n, n + clusters, ... Returns false for a
 // shape it does not take (H not a positive multiple of 4, an empty axis,
@@ -136,7 +142,6 @@ __host__ __device__ inline bool choose_fused_plan(int N, int L, int H, int P, Fu
     const long long room = static_cast<long long>(kSmemPerSm / R) - 1024 - static_cast<long long>(bare.total);
     const int S = static_cast<int>(lmax(1, lmin(2 * bare.nt, room / stage)));
     *plan = fused_layout(L, H, P, C, S);
-    plan->R = R;
     plan->grid = C * static_cast<int>(lmin(N, lmax(1, kSms * R / C)));
     if (plan->total <= kMaxSmem && (C == 1 || plan->S == 2 * plan->nt)) return true;
     if (C == 1) return false;

@@ -21,7 +21,6 @@ kernel for CUDA tensors; it never falls back from one to the other.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -61,7 +60,6 @@ def _check(q, k, v, key_map, pinyin_map):
         raise ValueError(f"inputs on several devices: {devices}")
 
 
-@functools.lru_cache(maxsize=256)
 def fused_kernel_plan(N: int, L: int, H: int, P: int) -> dict:
     """K3's plan for N rows of [L, H] with P pinyin slots, from the kernel
     library (``choose_fused_plan`` in ``csrc/s2pa_fused.cu``, exported as

@@ -3,7 +3,7 @@ card, in turns, on the same seeded inputs: the bank kernels K1
 (s2pa_bank_fwd) and K2 (s2pa_bank_bwd), and the fused forward K3
 (s2pa_fused).
 
-    python3 scripts/torch_bank_kernels_ab.py ROOT_A ROOT_B [--rounds 2] [--kernels all|bank|fused]
+    python3 scripts/torch_bank_kernels_ab.py ROOT_A ROOT_B [--rounds 2]
     python3 scripts/torch_bank_kernels_ab.py --profile ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a dicttts_tpu_torch package: this
@@ -27,8 +27,10 @@ path's mask layout (chip_smoke.text_layout: its share of padded gloss
 tokens and of all-masked pad words), and phase 3's synthetic B=16, T=64,
 L=96. A time is the kernel's own device time per call with L2 flushed
 before each (torch.profiler, chip_smoke.device_ms): the wrapper's host time
-exceeds the kernel's, so events around each call would count it; CUDA
-events around 20 back-to-back calls (warm L2) are given beside it.
+exceeds the kernel's, so CUDA events around each call count the host's
+gaps. Beside it: events around each call after the flush, all queued
+before one synchronize (chip_smoke.time_ms_cold), and around 20
+back-to-back calls (warm L2: the text cases' inputs fit in the 50 MB L2).
 
 Inputs, byte bounds and timers are this checkout's chip_smoke.py's. Each
 version is also checked against its own plain version.
@@ -124,7 +126,7 @@ def fused_cases(cs, sf, torch):
     return out
 
 
-def worker(root: str, kernels: str) -> dict:
+def worker(root: str) -> dict:
     """One root's measurements, in this process: the inputs, bounds and
     timers are chip_smoke.py's (this checkout's), the kernels the root's."""
     sys.path.insert(0, REPO)
@@ -138,9 +140,7 @@ def worker(root: str, kernels: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     rec = {"root": root, "device": torch.cuda.get_device_name(0)}
-    rec["cases"] = bank_cases(cs, sb, torch) if kernels in ("all", "bank") else []
-    rec["k3_cases"] = fused_cases(cs, sf, torch) if kernels in ("all", "fused") else []
-    return rec
+    return {**rec, "cases": bank_cases(cs, sb, torch), "k3_cases": fused_cases(cs, sf, torch)}
 
 
 def profile(root: str) -> dict:
@@ -234,12 +234,11 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("roots", nargs="+")
     ap.add_argument("--rounds", type=int, default=2)
-    ap.add_argument("--kernels", choices=("all", "bank", "fused"), default="all")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.worker:
-        rec = profile(a.roots[0]) if a.profile else worker(a.roots[0], a.kernels)
+        rec = profile(a.roots[0]) if a.profile else worker(a.roots[0])
         print(json.dumps(rec), flush=True)
         return 0
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -254,10 +253,9 @@ def main() -> int:
         order += a.roots if r % 2 == 0 else a.roots[::-1]
     runs = {root: [] for root in a.roots}
     for root in order:
-        runs[root].append(run_worker(root, "--kernels", a.kernels))
+        runs[root].append(run_worker(root))
     first_run = runs[a.roots[0]][0]
-    if first_run["cases"]:
-        print(f"K1 / K2 device ms, mean of {a.rounds} runs per root (share of the byte bound); on {smi}")
+    print(f"K1 / K2 device ms, mean of {a.rounds} runs per root (share of the byte bound); on {smi}")
     for i, first in enumerate(first_run["cases"]):
         print(f"  {first['case']} ({first['distinct_rows']} distinct rows; bounds "
               f"{first['k1_bound_ms']:.4f} / {first['k2_bound_ms']:.4f} ms)")
@@ -269,9 +267,8 @@ def main() -> int:
             print(f"    {root}: K1 {k1:.4f} ({100 * c[0]['k1_bound_ms'] / k1:.1f} %), K2 {k2:.4f} "
                   f"({100 * c[0]['k2_bound_ms'] / k2:.1f} %){sort}; max abs err vs plain "
                   f"{max(x['k1_max_abs_err'] for x in c):.3e} / {max(x['k2_max_abs_err'] for x in c):.3e}")
-    if first_run["k3_cases"]:
-        print(f"K3 device ms with L2 flushed (torch.profiler), each run's value (share of the byte bound); "
-              f"then CUDA events around each call (L2 flushed) and around back-to-back calls; on {smi}")
+    print(f"K3 device ms with L2 flushed (torch.profiler), each run's value (share of the byte bound); "
+          f"then CUDA events around each call (L2 flushed) and around back-to-back calls; on {smi}")
     for i, first in enumerate(first_run["k3_cases"]):
         print(f"  {first['case']} ({first['mbytes']:.2f} MB, bound {first['bound_ms']:.4f} ms; masked gloss "
               f"tokens {100 * first['masked_shares'][0]:.1f} %, all-masked rows "
