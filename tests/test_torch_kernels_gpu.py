@@ -280,6 +280,7 @@ def _fused_args(device, seed, B, T, L, H, P, pad_rows=0):
 # rows per CTA
 FUSED_PATHS = [
     ((1, 32, 56, 192, 8, 4), "cluster"),   # the text path's B=1 geometry
+    ((1, 32, 48, 192, 8, 4), "cluster"),   # its largest B=1 call in chip_smoke
     ((1, 16, 56, 192, 8, 3), "cluster"),
     ((1, 15, 13, 192, 6, 2), "cluster"),   # odd L and P
     ((2, 3, 7, 40, 5, 1), "cluster"),      # H = 40, P = 5: a padded [ctx | pron] column group
@@ -335,15 +336,17 @@ def test_fused_kernel_rejects_unaligned_width(cuda):
 
 
 def test_fused_kernel_plan(cuda):
-    """The plan at the three measured shapes: B=1 text path (N = 32, L = 56)
-    split over clusters of 8 (6 consumer warps and a producer warp a CTA)
-    with every copy issued at once; B=16 text path
+    """The plan at the three measured shapes: B=1 text path (N = 32, L = 48,
+    chip_smoke's largest B=1 call, and the bucket's L = 56) split over
+    clusters of 8 (6 consumer warps and a producer warp a CTA) with every
+    copy issued at once; B=16 text path
     (N = 512, L = 56) one CTA a row, four CTAs an SM, all of k issued at
     once; phase 3 (N = 1024, L = 96) 4 x 132 CTAs serving two rows each,
     streaming."""
-    b1 = fused_kernel_plan(32, 56, 192, 8)
-    assert (b1["cluster"], b1["ctas"], b1["threads"]) == (8, 256, 224)
-    assert b1["stages"] == 2 * b1["k_tiles"]
+    for L in (48, 56):
+        b1 = fused_kernel_plan(32, L, 192, 8)
+        assert (b1["cluster"], b1["ctas"], b1["threads"]) == (8, 256, 224)
+        assert b1["stages"] == 2 * b1["k_tiles"]
     b16 = fused_kernel_plan(512, 56, 192, 8)
     assert (b16["cluster"], b16["ctas"]) == (1, 512)
     assert b16["stages"] >= b16["k_tiles"] and 4 * (b16["smem_bytes"] + 1024) <= 228 * 1024
