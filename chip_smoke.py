@@ -72,13 +72,32 @@ Phases, each announced on its own line:
     the corpus with per-utterance gathered banks (use_device_dict_bank
     false) for 4 steps: finite losses, K1/K2 never launched, step ms by
     batch shape beside phase 8's.
+10. the recipe's other settings on phase 8's directory: (a) the splits
+    converted to .rio by the port's converter and read by its native
+    reader; run.main under amp (bf16 autocast, the bank held bf16, mels
+    sent as f16) for phase 8's 16 steps, step ms by batch shape beside
+    phase 8's f32 times, peak memory, K1/K2 launched every step; one
+    profiled step of the largest 512-frame batch, with the device time in
+    kernels named FFT; then --infer under amp with use_pallas_s2pa on
+    gathered banks (K3 once per test utterance, outputs finite, meta.csv
+    full), and K3 with a bf16 q against its plain version; (b)
+    accumulate_grad_batches=2: 3 micro-steps, the checkpoint after the
+    third holding one pending micro-step per optimizer, a resume
+    and on to 8: 4 updates of each optimizer; (c) 4 steps with speaker
+    ids (num_spk 2000), the flow-less prior, Gumbel senses, the
+    discriminator without norm and with the sum reduction, on the unfused
+    bank (K1/K2 never launched), and 4 with the sense mode on the fused
+    bank (K1/K2 launched); (d) one train step under amp beside one in f32
+    on the card at tests/test_torch_amp.py's small widths, inputs and
+    weights: the largest loss gap within twice the JAX package's own
+    amp-vs-f32 gap on those inputs, measured on the CPU by that test.
 
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b, 8 and 9 remove.
+temporary directories that phases 7b, 8, 9 and 10 remove.
 """
 
 from __future__ import annotations
@@ -107,6 +126,17 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 outside them
 BANK_V, BANK_L, BANK_E, BANK_P = 8000, 96, 768, 8
 SAMPLE_RATE, HOP = 22050, 256
+# phase 10d: one train step's settings (small widths, gathered banks,
+# dropout 0), and the JAX task's largest |amp - f32| loss gap on its inputs
+# (amp_check_inputs, amp_check_weights), which tests/test_torch_amp.py
+# measures on the CPU and holds this constant to
+AMP_CHECK_CFG = dict(word_size=40, hidden_size=16, num_heads=2, enc_ffn_kernel_size=3, dropout=0.0,
+                     predictor_dropout=0.0, disc_dropout=0.0, value_embedding_size=30, dict_embed_dim=32,
+                     dur_predictor_layers=2, dur_predictor_kernel=3, latent_size=4, fvae_enc_dec_hidden=16,
+                     fvae_kernel_size=3, fvae_enc_n_layers=1, fvae_dec_n_layers=1, prior_glow_hidden=8,
+                     glow_kernel_size=3, prior_glow_n_blocks=1, mel_disc_hidden_size=8,
+                     use_device_dict_bank=False, max_frames=96)
+JAX_AMP_LOSS_GAP = 1.738e-3
 BATCHES = ((1, 32), (4, 48), (16, 64))  # (requests, word slots per request)
 TRAIN_B, TRAIN_TW, TRAIN_T = 60, 64, 512  # recipe max_sentences 60, the 512-frame bucket
 TRAIN_WARMUP, TRAIN_STEPS = 2, 20
@@ -198,8 +228,9 @@ def device_kernel_ms(fn, iters: int = 20, cold: bool = False, load: int = 0) -> 
     On the H100 a profiler session drops the records of the kernels it
     meets first (one in a fresh process; several late in chip_smoke), so
     each session opens with a pause and a ~1 ms spin kernel, the flush is
-    named from ``iters`` flushes, and a kernel's time per call is its mean
-    over the records kept times its launches per call."""
+    named from ``iters`` flushes, a session that kept no record of the
+    calls is run again (up to 3 sessions), and a kernel's time per call is
+    its mean over the records kept times its launches per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -235,10 +266,11 @@ def device_kernel_ms(fn, iters: int = 20, cold: bool = False, load: int = 0) -> 
                 flush.zero_()
             fn()
 
-    out = {key: t / n * math.ceil(n / iters) / 1e3 for key, n, t in kernels(run) if key not in skip}
-    if not out:
-        raise RuntimeError("torch.profiler recorded no kernel of the timed calls")
-    return out
+    for _ in range(3):  # a session late in the run can drop every record of the calls
+        out = {key: t / n * math.ceil(n / iters) / 1e3 for key, n, t in kernels(run) if key not in skip}
+        if out:
+            return out
+    raise RuntimeError("torch.profiler recorded no kernel of the timed calls in 3 sessions")
 
 
 def device_ms(fn, iters: int = 20, cold: bool = False, load: int = 0) -> float:
@@ -1243,6 +1275,324 @@ def gathered_training(root, binary, smi, recipe_report):
     return report
 
 
+def rio_corpus(root, binary):
+    """Phase 10a's corpus: phase 8's splits converted to .rio by the port's
+    converter, beside links to the rest of phase 8's directory (the
+    vocabularies, the lengths, the stand-in dict_embed)."""
+    from dicttts_tpu_torch.data.recordio import convert_indexed_dataset
+
+    rio_dir = os.path.join(root, "binary_rio")
+    os.makedirs(rio_dir)
+    splits = {f"{s}{ext}" for s in CORPUS_SPLITS for ext in (".data", ".idx")}
+    for name in os.listdir(binary):
+        if name not in splits:
+            os.symlink(os.path.realpath(os.path.join(binary, name)), os.path.join(rio_dir, name))
+    t = time.time()
+    counts = {s: convert_indexed_dataset(os.path.join(binary, s), os.path.join(rio_dir, s))
+              for s in CORPUS_SPLITS}
+    size = sum(os.path.getsize(os.path.join(rio_dir, f"{s}.rio")) for s in CORPUS_SPLITS)
+    say(f".rio corpus: {counts} records, {size / 1e6:.1f} MB, converted in {time.time() - t:.2f} s")
+    if counts != CORPUS_SPLITS:
+        raise AssertionError(f"converted {counts}, not the corpus's {CORPUS_SPLITS}")
+    return rio_dir
+
+
+def launch_counts():
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
+
+    return s2pa_bank_fwd.launches, s2pa_bank_bwd.launches, s2pa_fused.launches
+
+
+def zero_launch_counts():
+    from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_bwd, s2pa_bank_fwd
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
+
+    s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
+
+
+def run_main(root, exp_name, hparams, *extra):
+    """run.main on the recipe's config in ``root``, the launch counts set to
+    0 just before and read just after. Returns (trainer, task, (K1, K2, K3))."""
+    from dicttts_tpu_torch import run
+
+    with in_dir(root):
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        out = run.main(["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", exp_name,
+                        "--device", "cuda", *extra, *(["--hparams", hparams] if hparams else [])])
+        torch.cuda.synchronize()
+    return (*out, launch_counts())
+
+
+def finite_run(trainer, task):
+    vals = {k: float(v) for k, v in trainer.metrics.items()}
+    finite = all(math.isfinite(v) for v in (*vals.values(), *trainer.val_metrics.values()))
+    return vals, finite and all(bool(torch.isfinite(p).all()) for p in task.model.parameters())
+
+
+def profile_fft(task, batch, smi):
+    """One train step under torch.profiler: its top kernels, and the device
+    time in kernels whose names say FFT (cuDNN's FFT convolutions)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dev_batch = task.to_device({k: v for k, v in batch.items() if k != "_meta"})
+    task.train_step(dev_batch, gen)  # this shape's first step: cuDNN's choices and the allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        task.train_step(dev_batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in events) / 1e3
+    fft = [e for e in events if "fft" in e.key.lower()]
+    fft_ms = sum(e.self_device_time_total for e in fft) / 1e3
+    shape = tuple(batch["mel2word"].shape)
+    if not events:
+        say("profiler: no device time recorded (FFT share not measured)")
+        return {"shape": shape, "fft_kernels": None}
+    say(f"amp step {shape[0]}x{shape[1]} profiled: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms; "
+        f"kernels named FFT: {len(fft)} kinds, {fft_ms:.2f} ms ({100 * fft_ms / max(busy, 1e-9):.1f} % "
+        f"of device time); on {smi}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+        say(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:5d} x  {e.key[:110]}")
+    return {"shape": shape, "wall_ms": wall_ms, "busy_ms": busy, "fft_kernels": [e.key[:80] for e in fft],
+            "fft_ms": fft_ms}
+
+
+def amp_recipe(root, binary, smi, recipe_report):
+    """Phase 10a: the recipe under amp from a .rio corpus (the device bank,
+    the frame cache, K1/K2), a profiled 60x512 step, then --infer with
+    use_pallas_s2pa on gathered banks (K3). Returns (launches by run, the
+    report)."""
+    from dicttts_tpu_torch.data.recordio import RecordReader
+
+    rio_dir = rio_corpus(root, binary)
+    hp = (f"binary_data_dir={rio_dir},amp=True,max_updates={RECIPE_STEPS},"
+          f"val_check_interval={RECIPE_STEPS // 2},num_sanity_val_steps=1")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    trainer, task, launches = run_main(root, "amp", hp)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    readers = [getattr(p.ds.ds, "is_native", False) for p in (task.data.train, task.data.valid, task.data.test)]
+    say(f"amp run.main: {trainer.global_step} steps in {time.time() - t:.1f} s; splits read by the native "
+        f".rio reader {readers}; bank {task.bank['keys'].dtype}; peak memory {peak:.2f} GiB; launches "
+        f"(K1, K2, K3) {launches}; on {smi}")
+    report = {"peak_gib": peak, "launches": {"amp_train": launches},
+              "train": step_report(trainer.history, "amp", smi)}
+    f32 = recipe_report["train"]["step_ms"]
+    for shape, ms in report["train"]["step_ms"].items():
+        if shape in f32:
+            say(f"step ms at {shape}: amp {' '.join(f'{x:.1f}' for x in ms)}; f32 (phase 8) "
+                f"{' '.join(f'{x:.1f}' for x in f32[shape])}; on {smi}")
+    vals, finite = finite_run(trainer, task)
+    say(f"amp last step {vals}; validation {trainer.val_metrics}")
+    if not (all(readers) and isinstance(task.data.train.ds.ds, RecordReader)):
+        raise AssertionError("the .rio splits were not read by the native reader")
+    if not (trainer.global_step == RECIPE_STEPS and finite and task.act_dtype == torch.bfloat16
+            and task.bank["keys"].dtype == torch.bfloat16):
+        raise AssertionError(f"the amp run did not train {RECIPE_STEPS} finite steps in bf16")
+    if not (launches[1] == RECIPE_STEPS and launches[0] > RECIPE_STEPS and launches[2] == 0):
+        raise AssertionError(f"K1/K2 not launched every amp step: {launches}")
+    batches = [b for b in task.data.train_batches() if b["mel2word"].shape[1] == 512]
+    report["profile"] = profile_fft(task, max(batches, key=lambda b: b["mel2word"].shape[0]), smi)
+    del trainer, task
+    torch.cuda.empty_cache()
+
+    hp = "amp=True,use_pallas_s2pa=True,use_device_dict_bank=False"
+    trainer, task, launches = run_main(root, "amp", hp, "--infer")
+    n_test = CORPUS_SPLITS["test"]
+    gen_dir = os.path.join(root, "checkpoints", "amp", "generated")
+    mels = [np.load(os.path.join(gen_dir, f)) for f in os.listdir(gen_dir) if f.endswith(".mel.npy")]
+    say(f"amp --infer with use_pallas_s2pa on gathered banks: {n_test} test utterances in "
+        f"{trainer.test_seconds:.2f} s ({trainer.test_seconds / n_test * 1e3:.2f} ms each); launches "
+        f"(K1, K2, K3) {launches}; {len(mels)} mels, all finite {all(np.isfinite(m).all() for m in mels)}; "
+        f"on {smi}")
+    check_meta(gen_dir, binary, n_test)
+    if launches != (0, 0, n_test) or len(mels) != n_test or not all(np.isfinite(m).all() for m in mels):
+        raise AssertionError(f"amp --infer: launches {launches}, {len(mels)} mels")
+    report["launches"]["amp_infer"] = launches
+    report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
+    del trainer, task
+    torch.cuda.empty_cache()
+    report["k3_amp_max_abs_err"] = k3_under_amp(smi)
+    return report
+
+
+def k3_under_amp(smi):
+    """K3 as the inference under amp calls it (a bf16 q, f32 k and v; the
+    wrapper upcasts q and rounds the outputs to bf16) against its plain
+    version's f32 outputs rounded to bf16, at the text path's B=16 shape:
+    within one bf16 rounding (rtol 2**-7, atol 1e-5)."""
+    from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
+
+    q, k, v, km, pm = fused_case(torch.device("cuda"), torch.Generator(device="cuda").manual_seed(SEED + 11),
+                                 16, 32, 56, "text")
+    qb = q.to(torch.bfloat16)
+    got = s2pa_fused(qb, k, v, km, pm)
+    want = [w.to(torch.bfloat16) for w in s2pa_fused_plain(qb.float(), k, v, km, pm)]
+    torch.cuda.synchronize()
+    err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+    ok = all(g.dtype == torch.bfloat16 and bool(torch.isfinite(g).all())
+             and torch.allclose(g.float(), w.float(), rtol=2 ** -7, atol=1e-5) for g, w in zip(got, want))
+    say(f"K3 under amp (bf16 q) at B=16 Tw=32 L=56 vs its plain version rounded to bf16: max abs err "
+        f"{err:.3e} (tol: one bf16 rounding, rtol 2**-7), outputs bf16 and finite {ok}; on {smi}")
+    if not ok:
+        raise AssertionError("K3 under amp disagrees with its plain version")
+    return err
+
+
+def accumulation(root, binary, smi):
+    """Phase 10b: accumulate_grad_batches=2 through run.main: 3 micro-steps
+    (a checkpoint after the odd one, mid-accumulation), a resume, and on to
+    8: 4 updates of each optimizer. Returns the launches of both runs."""
+    from dicttts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    hp = (f"binary_data_dir={binary},accumulate_grad_batches=2,max_updates=3,val_check_interval=3,"
+          "num_sanity_val_steps=0")
+    trainer, task, first = run_main(root, "accumulate", hp)
+    work_dir = os.path.join(root, "checkpoints", "accumulate")
+    _, saved = load_checkpoint(os.path.join(work_dir, "model_ckpt_steps_3.ckpt"), "cpu")
+    counts = (task.step, task.updates_g, task.updates_d, task.acc["g"]["n"], task.acc["d"]["n"])
+    say(f"accumulate 2: 3 micro-steps, (step, updates g, updates d, pending g, pending d) {counts}; the "
+        f"step-3 checkpoint holds {saved['acc_g']['n']} and {saved['acc_d']['n']} pending micro-steps")
+    if counts != (3, 1, 1, 1, 1) or (saved["acc_g"]["n"], saved["acc_d"]["n"]) != (1, 1):
+        raise AssertionError(f"accumulation counts {counts} after 3 micro-steps")
+    del trainer, task
+    trainer, task, second = run_main(root, "accumulate", "max_updates=8")
+    counts = (task.step, task.updates_g, task.updates_d, task.acc["g"]["n"], task.acc["d"]["n"])
+    vals, finite = finite_run(trainer, task)
+    say(f"resumed at micro-step 3 and ran to {trainer.global_step}: (step, updates g, updates d, pending "
+        f"g, pending d) {counts}; launches (K1, K2, K3) {first} + {second}; last step {vals}; finite "
+        f"{finite}; step ms {[round(h['step_ms'], 1) for h in trainer.history]}; on {smi}")
+    if not (counts == (8, 4, 4, 0, 0) and finite and "grad_norm_g" in vals and "grad_norm_d" in vals
+            and [h["step"] for h in trainer.history] == list(range(4, 9))):
+        raise AssertionError(f"8 micro-steps did not give 4 updates of each optimizer: {counts}")
+    del trainer, task
+    torch.cuda.empty_cache()
+    return tuple(a + b for a, b in zip(first, second))
+
+
+def other_settings(root, binary, smi):
+    """Phase 10c: the recipe's other settings for 4 steps each: speaker ids,
+    the flow-less prior, Gumbel senses, the discriminator without norm and
+    with the sum reduction, on the unfused bank (K1/K2 never launched); then
+    the sense mode on the fused bank (K1/K2 launched). Returns the launches."""
+    steps, out = 4, {}
+    base = (f"binary_data_dir={binary},max_updates={steps},val_check_interval={steps},"
+            "num_sanity_val_steps=0")
+    runs = {"settings_unfused": ("use_spk_id=True,num_spk=2000,use_prior_glow=False,s2pa_sense_mode=gumbel,"
+                                 "disc_norm=none,disc_reduction=sum,s2pa_bank_fused=False"),
+            "settings_sense": "s2pa_sense_mode=sense"}
+    for name, hp in runs.items():
+        t = time.time()
+        trainer, task, launches = run_main(root, name, f"{base},{hp}")
+        vals, finite = finite_run(trainer, task)
+        say(f"{name} ({hp}): {trainer.global_step} steps in {time.time() - t:.1f} s, launches (K1, K2, K3) "
+            f"{launches}, speakers {task.model.num_spk}, prior flow {task.model.fvae.prior_flow is not None}, "
+            f"bank fused {task.bank_fused}; last step {vals}; finite {finite}; on {smi}")
+        fused = name == "settings_sense"
+        if not (trainer.global_step == steps and finite and task.bank_fused == fused):
+            raise AssertionError(f"{name} did not train {steps} finite steps")
+        if fused != (launches[1] == steps and launches[0] >= steps) or (not fused and launches != (0, 0, 0)):
+            raise AssertionError(f"{name}: K1/K2 launches {launches}")
+        if not fused and not (task.model.num_spk == 2000 and task.model.fvae.prior_flow is None):
+            raise AssertionError(f"{name}: the settings did not reach the model")
+        out[name] = launches
+        del trainer, task
+        torch.cuda.empty_cache()
+    return out
+
+
+def amp_check_inputs():
+    """Phase 10d's inputs, which tests/test_torch_amp.py also feeds to the
+    JAX task on the CPU to measure its own amp-vs-f32 gap: small widths
+    (AMP_CHECK_CFG), a [40, 12, 32] bank gathered into a batch of 2
+    sentences of 8 words and 144 frames, the posterior noise, and crop
+    starts from fixed uniforms (float32 math, as the JAX discriminator
+    draws them). All numpy, from SEED."""
+    rng = np.random.RandomState(SEED + 9)
+    V, L, E, P, B, Tw, T = 40, 12, 32, 6, 2, 8, 144
+    km = (rng.randint(0, 3, (V, L)) + (np.arange(L) == 0)).astype(np.int32)
+    bank = {"keys": (rng.randn(V, L, E) * 0.5).astype(np.float32), "key_map": km,
+            "pinyin": rng.randint(1, 30, (V, P)).astype(np.int32),
+            "pinyin_map": np.tile(np.array([1, 1, 2, 2, 0, 0], np.int32), (V, 1))}
+    wt = np.zeros((B, Tw), np.int32)
+    m2w = np.zeros((B, T), np.int32)
+    lengths = np.array([T, 100], np.int32)
+    for b, n_frames in enumerate(lengths):
+        f = w = 0
+        while f < n_frames and w < Tw:
+            d = min(rng.randint(8, 21), n_frames - f)
+            m2w[b, f:f + d] = w + 1
+            f, w = f + d, w + 1
+        wt[b, :w] = np.concatenate([[1], rng.randint(5, V, w - 1)])
+    batch = {"word_tokens": wt, "mel2word": m2w, "mel_lengths": lengths,
+             "word_lengths": (wt > 0).sum(1).astype(np.int32),
+             "pron_modified": (np.where(rng.rand(B, Tw) < 0.2, 1, 0) * (wt > 0)).astype(np.int32),
+             "mels": (rng.randn(B, T, 80) * 0.5 - 2).astype(np.float32) * (m2w > 0)[:, :, None],
+             **{k: bank[k][wt] for k in ("key_map", "pinyin", "pinyin_map")},
+             "keys": bank["keys"][wt], "values": bank["keys"][wt]}
+    eps = rng.randn(B, T // 4, AMP_CHECK_CFG["latent_size"]).astype(np.float32)
+    u = np.array([0.3, 0.8, 0.45], np.float32)
+    max_len = int(lengths.max())
+    starts = np.array([min(int(np.floor(ui * np.float32(max(max_len - w, 0) + 1))), max(T - w, 0))
+                       for ui, w in zip(u, (32, 64, 128))], np.int64)
+    return batch, eps, u, starts
+
+
+def amp_check_weights(task):
+    """Seeded weights for phase 10d's generator and discriminator, drawn
+    in parameter order with numpy (the same on any machine)."""
+    rng = np.random.RandomState(SEED + 10)
+    with torch.no_grad():
+        for module, scale in ((task.model, 0.2), (task.disc, 0.05)):
+            for p in module.parameters():
+                p.copy_(torch.from_numpy((rng.randn(*p.shape) * scale).astype(np.float32)))
+
+
+def amp_check_losses(device, amp):
+    """One train step's losses (generator and discriminator) of the port at
+    AMP_CHECK_CFG on phase 10d's inputs, with or without amp."""
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+
+    batch, eps, _, starts = amp_check_inputs()
+    task = DictTTSTask({**AMP_CHECK_CFG, "amp": amp}, device=device)
+    task.build_state(SEED)
+    amp_check_weights(task)
+    starts = torch.from_numpy(starts).to(task.device)
+    metrics = task.train_step(task.to_device(batch), eps=torch.from_numpy(eps).to(task.device),
+                              start_frames_g=starts, start_frames_d=starts)
+    return {k: float(v) for k, v in metrics.items() if not k.startswith("grad_norm")}
+
+
+def amp_vs_f32_step(device, smi):
+    """Phase 10d: one train step under amp beside one in f32 on the card,
+    from the same weights, batch, dropout 0, noise and crops; the largest
+    loss gap against twice the JAX package's own amp-vs-f32 gap on these
+    inputs (measured on the CPU by tests/test_torch_amp.py)."""
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out = {"f32": amp_check_losses(device, False), "amp": amp_check_losses(device, True)}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    gap = max(abs(out["amp"][k] - out["f32"][k]) for k in out["f32"])
+    for k in out["f32"]:
+        say(f"  {k}: amp {out['amp'][k]:.6f} f32 {out['f32'][k]:.6f} |gap| {abs(out['amp'][k] - out['f32'][k]):.2e}")
+    say(f"amp vs f32 on the card: largest loss gap {gap:.3e}; the JAX package's on the same inputs "
+        f"{JAX_AMP_LOSS_GAP:.3e} (tests/test_torch_amp.py, CPU), bound 2x {2 * JAX_AMP_LOSS_GAP:.3e}; "
+        f"launches (K1, K2, K3) {launches}; on {smi}")
+    if not all(math.isfinite(v) for o in out.values() for v in o.values()) or gap > 2 * JAX_AMP_LOSS_GAP:
+        raise AssertionError("the amp step's losses are not within twice the JAX package's amp gap")
+    if launches != (0, 0, 0):
+        raise AssertionError(f"the gathered-bank steps launched (K1, K2, K3) {launches}")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)  # never outlive the run's limit
     say("phase 0: device")
@@ -1417,6 +1767,20 @@ def main() -> int:
         gathered_report = gathered_training(root, binary, smi, report)
         say("phase 9b report " + json.dumps(gathered_report))
         say(f"phase 9 done at {time.time() - T_START:.1f} s")
+
+        say("phase 10a: the recipe under amp from a .rio corpus, a profiled 60x512 step, --infer with K3")
+        amp_report = amp_recipe(root, binary, smi, report)
+        recipe_launches.update(amp_report["launches"])
+        say("phase 10a report " + json.dumps(amp_report))
+        say("phase 10b: accumulate_grad_batches=2, 8 micro-steps with a resume after the third")
+        recipe_launches["accumulate"] = accumulation(root, binary, smi)
+        say("phase 10c: speaker ids, flow-less prior, Gumbel and sense modes, the discriminator variants, "
+            "the unfused bank")
+        recipe_launches.update(other_settings(root, binary, smi))
+        say(f"phase 10c done at {time.time() - T_START:.1f} s")
+    say("phase 10d: one amp train step beside one f32 step on the card, same weights, batch and noise")
+    recipe_launches["amp_vs_f32"] = amp_vs_f32_step(device, smi)
+    say(f"phase 10 done at {time.time() - T_START:.1f} s")
     if os.path.exists(root):
         raise AssertionError(f"{root} was not removed")
 

@@ -15,9 +15,9 @@ the flax tree exactly. Layout rules:
 - Conv2d kernel [kh, kw, in, out] (HWIO) -> Conv2d weight [out, in, kh, kw];
 - Embedding and LayerNorm parameters are unchanged.
 
-The discriminator has no converter in the JAX package;
-``discriminator_state`` maps its flax tree directly. The same functions
-map a gradient tree, which has the parameters' layout.
+The discriminators have no converter in the JAX package;
+``discriminator_state`` and ``jcu_state`` map their flax trees directly.
+The same functions map a gradient tree, which has the parameters' layout.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from torch import nn
 
 from dicttts_tpu_torch.models.dict_encoder import DictEncoder, S2PAAttention
 from dicttts_tpu_torch.models.dict_tts import DictTTS
-from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
+from dicttts_tpu_torch.models.discriminator import JCUDiscriminator, MultiWindowDiscriminator
 from dicttts_tpu_torch.models.duration import DurationPredictor
 from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.fvae import FVAE
@@ -143,8 +143,9 @@ def fvae_state(p: dict, module: FVAE, prefix: str = "") -> dict:
     out.update(wn_state(dec["WN_0"], module.decoder.wn.n_layers, f"{prefix}decoder.wn."))
     _conv_entry(out, f"{prefix}decoder.out_proj", dec["out_proj"])
     flow = module.prior_flow
-    out.update(coupling_block_state(p["prior_flow"], len(flow.flows) // 2,
-                                    flow.flows[0].enc.n_layers, f"{prefix}prior_flow."))
+    if flow is not None:
+        out.update(coupling_block_state(p["prior_flow"], len(flow.flows) // 2,
+                                        flow.flows[0].enc.n_layers, f"{prefix}prior_flow."))
     return out
 
 
@@ -153,6 +154,8 @@ def dict_tts_state(p: dict, module: DictTTS) -> dict:
     out = dict_encoder_state(p["dict_encoder"], len(enc.semantic_encoder.attn_layers), "dict_encoder.")
     out.update(duration_state(p["dur_predictor"], len(module.dur_predictor.conv), "dur_predictor."))
     out.update(fvae_state(p["fvae"], module.fvae, "fvae."))
+    if module.num_spk > 0:
+        out["spk_embed_proj.weight"] = p["spk_embed_proj"]["embedding"]
     return out
 
 
@@ -198,6 +201,15 @@ def discriminator_state(params_d: dict) -> dict:
     return out
 
 
+def jcu_state(params: dict) -> dict:
+    """JCUDiscriminator: flax tree {'<conv name>': {'kernel', 'bias'}} -> the
+    port's ``state_dict`` (the same layer names)."""
+    out: dict = {}
+    for name, leaf in params.items():
+        _conv_entry(out, name, leaf)
+    return out
+
+
 def jax_params_to_state(module: nn.Module, params: dict) -> dict:
     """The port ``state_dict`` (numpy arrays) equivalent to a flax tree."""
     if isinstance(module, DictTTS):
@@ -206,6 +218,8 @@ def jax_params_to_state(module: nn.Module, params: dict) -> dict:
         return hifigan_state(params, module)
     if isinstance(module, MultiWindowDiscriminator):
         return discriminator_state(params)
+    if isinstance(module, JCUDiscriminator):
+        return jcu_state(params)
     if isinstance(module, DictEncoder):
         return dict_encoder_state(params, len(module.S2PA_module.semantic_encoder.attn_layers))
     if isinstance(module, S2PAAttention):

@@ -2,7 +2,9 @@
 
 Port of ``TTSBinaryDataset`` and ``TTSBatchProvider`` from
 ``dicttts_tpu/data/datasets.py``, reading the same ``.data``/``.idx``
-binaries the binarizer writes:
+binaries the binarizer writes, or a split's ``.rio``/``.rix`` records
+where they exist (``data/recordio.py``, read by the native reader, which
+the provider asks to prefetch the next batch's records):
 
 - ``TTSBinaryDataset`` gives one utterance's arrays (kinds 'base', 'fs',
   'word', 'dict'): mel, phone tokens, mel2ph, f0/uv (``use_pitch_embed``),
@@ -20,8 +22,7 @@ binaries the binarizer writes:
   gloss bucket (32, or ``gloss_buckets``) and the pinyin bucket (8, or
   ``pinyin_buckets``).
 
-Not ported: the ``.rio`` record format and ``VocoderDataset`` (ROADMAP
-Queue 1).
+Not ported: ``VocoderDataset`` (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from dicttts_tpu_torch.data.collate import (
     ordered_indices,
     shape_bucket,
 )
+from dicttts_tpu_torch.data.recordio import RecordReader
 from dicttts_tpu_torch.ops.pitch import norm_interp_f0
 from dicttts_tpu_torch.utils.indexed_dataset import IndexedDataset
 from dicttts_tpu_torch.utils.text_encoder import TokenTextEncoder
@@ -88,11 +90,8 @@ class TTSBinaryDataset:
         self.cfg = cfg
         self.kind = kind
         base = os.path.join(data_dir, prefix)
-        if os.path.exists(base + ".rio"):
-            raise NotImplementedError(
-                f"{base}.rio: the .rio record format is not ported yet (ROADMAP Queue 1 item 1); "
-                "use the .data/.idx binaries")
-        self.ds = IndexedDataset(base)
+        # the split's .rio records where they exist, as the JAX dataset prefers them
+        self.ds = RecordReader(base) if os.path.exists(base + ".rio") else IndexedDataset(base)
         sizes_fn = os.path.join(data_dir, f"{prefix}_lengths.npy")
         self.sizes = (
             np.load(sizes_fn).tolist()
@@ -364,7 +363,11 @@ class TTSBatchProvider:
 
     def _iter(self):
         get = self.ds.light_item if self.emit_frame_refs else self.ds.__getitem__
-        for idx_batch in self._make_batches():
+        batches = self._make_batches()
+        prefetch = getattr(self.ds.ds, "prefetch", None)  # the .rio reader's
+        for n, idx_batch in enumerate(batches):
+            if prefetch is not None and n + 1 < len(batches):
+                prefetch(batches[n + 1])  # warm the next batch's pages
             if idx_batch:
                 yield self._pad_sentence_bucket(self.collate([get(i) for i in idx_batch]))
 

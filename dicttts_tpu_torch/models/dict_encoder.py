@@ -1,22 +1,29 @@
 """Semantics-to-pronunciation attention (S2PA) and the DictEncoder.
 
-Port of ``dicttts_tpu/models/dict_encoder.py`` for the released model's
-``token`` sense mode, in training and inference. ``S2PAAttention`` has the
-three branches of the JAX module:
+Port of ``dicttts_tpu/models/dict_encoder.py``, in training and inference.
+``S2PAAttention`` has the three branches of the JAX module:
 
 - bank: ``keys`` is the un-gathered ``[V, L, E]`` device bank, and the
   gather-fused kernels pick rows by word id: K1 forward, K2 backward
   (``ops/s2pa_bank.py::s2pa_bank_attend``); dropout is the keep-scale mask
   K1 applies to the weights;
 - fused: gathered ``[B, T, L, E]`` banks with ``use_pallas``, in eval mode
-  only: k and v are projected to H, then the fused kernel K3
-  (``ops/s2pa_fused.py``);
-- eager: gathered banks otherwise: plain tensor code with the q -> E
+  and the ``token`` sense mode only: k and v are projected to H in f32,
+  then the fused kernel K3 (``ops/s2pa_fused.py``);
+- eager: gathered banks otherwise (and a device bank gathered by word id,
+  ``s2pa_bank_fused: false``): plain tensor code with the q -> E
   reassociation.
 
-In every branch the sense remap reads the weights after dropout. Dropout
-acts in training mode only, with masks drawn from the ``torch.Generator``
-passed to ``forward``.
+In every branch the sense remap reads the weights after dropout. The sense
+mode picks the remap: ``token`` (the released model) sums the attention
+mass per sense id onto each pinyin slot (``sense_remap``); ``sense`` and
+``gumbel`` first sum it per sense, renormalise over the senses (a softmax,
+or a straight-through Gumbel softmax at ``gumbel_temperature``) and then
+broadcast each sense's share onto its pinyin slots
+(``sense_remap_grouped``). Dropout and the Gumbel noise act in training
+mode only, drawn from the ``torch.Generator`` passed to ``forward``. Under
+amp the softmax statistics and the remap run in f32 with autocast off, as
+the JAX module keeps them f32.
 
 Parameter names follow the reference torch modules (``q_transform``,
 ``S2PA_module.word_emb``, ...), which ``dicttts_tpu.utils.torch_convert``
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dicttts_tpu_torch.models.layers import RelTransformerLayers, dropout, keep_mask
+from dicttts_tpu_torch.ops.amp import f32_island
 from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_attend
 from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused
 
@@ -58,6 +66,49 @@ def sense_remap(weights: torch.Tensor, key_map: torch.Tensor, pinyin_map: torch.
     return torch.einsum("btl,btlp->btp", weights, same.to(weights.dtype))
 
 
+def gumbel_noise(shape, generator: torch.Generator | None, device) -> torch.Tensor:
+    """Standard Gumbel samples -log(-log(u)), u uniform on [tiny, 1), f32,
+    as ``jax.random.gumbel`` draws them. Needs an explicit generator."""
+    if generator is None:
+        raise ValueError("Gumbel noise in training mode needs a torch.Generator")
+    u = torch.rand(shape, generator=generator, device=device).clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel_softmax(logits: torch.Tensor, temperature: float,
+                   noise: torch.Tensor | None = None) -> torch.Tensor:
+    """Hard straight-through Gumbel softmax over the last axis: the one-hot
+    of the argmax of softmax((logits + noise) / temperature) in the forward
+    value, gradients through the soft weights. ``noise`` None: no noise
+    (eval)."""
+    y = logits if noise is None else logits + noise.to(logits.dtype)
+    y_soft = torch.softmax(y / temperature, dim=-1)
+    y_hard = F.one_hot(y_soft.argmax(-1), logits.shape[-1]).to(logits.dtype)
+    return y_soft + (y_hard - y_soft).detach()
+
+
+def sense_remap_grouped(weights: torch.Tensor, key_map: torch.Tensor, pinyin_map: torch.Tensor,
+                        max_senses: int, mode: str = "sense", temperature: float = 0.8,
+                        noise: torch.Tensor | None = None) -> torch.Tensor:
+    """The sense-grouped remap: gloss-token weights [B, T, L] summed per
+    sense id (1..max_senses, 0 = pad), renormalised over the senses a word
+    has (``sense``: softmax; ``gumbel``: hard straight-through Gumbel
+    softmax with ``noise`` [B, T, max_senses]), then broadcast onto each
+    sense's pinyin slots -> [B, T, P]. A word with no sense gets zeros."""
+    sense_ids = torch.arange(1, max_senses + 1, device=weights.device)
+    key_oh = (key_map[..., None] == sense_ids).to(weights.dtype)  # [B, T, L, S]
+    merged = torch.einsum("btl,btls->bts", weights, key_oh)
+    has_sense = key_oh.sum(dim=2) > 0
+    logits = torch.where(has_sense, merged, S2PA_MASK_VALUE)
+    if mode == "gumbel":
+        sel = gumbel_softmax(logits, temperature, noise)
+    else:
+        sel = torch.softmax(logits, dim=-1)
+    sel = sel * has_sense.to(weights.dtype)
+    pin_oh = (pinyin_map[..., None] == sense_ids).to(weights.dtype)  # [B, T, P, S]
+    return torch.einsum("bts,btps->btp", sel, pin_oh)
+
+
 def apply_pron_rule(pron_weights: torch.Tensor, pinyin_map: torch.Tensor,
                     pron_modified: torch.Tensor) -> torch.Tensor:
     """Where pron_modified[b,t] = i > 0 the forward value becomes the
@@ -69,24 +120,48 @@ def apply_pron_rule(pron_weights: torch.Tensor, pinyin_map: torch.Tensor,
     return pron_weights + delta.detach()
 
 
+SENSE_MODES = ("token", "sense", "gumbel")
+
+
 class S2PAAttention(nn.Module):
     """Per-character attention over its own dictionary gloss tokens, plus
     the pronunciation head."""
 
     def __init__(self, query_size: int, dict_embed_dim: int = 768, pinyin_vocab: int = 185,
-                 use_pallas: bool = False, dropout_rate: float = 0.0):
+                 use_pallas: bool = False, dropout_rate: float = 0.0, sense_mode: str = "token",
+                 max_senses: int = 10, gumbel_temperature: float = 0.8):
         super().__init__()
+        if sense_mode not in SENSE_MODES:
+            raise ValueError(f"s2pa_sense_mode must be one of {SENSE_MODES}, got {sense_mode!r}")
         self.use_pallas = use_pallas
         self.dropout_rate = dropout_rate
+        self.sense_mode = sense_mode
+        self.max_senses = max_senses
+        self.gumbel_temperature = gumbel_temperature
         self.q_transform = nn.Linear(query_size, query_size, bias=False)
         self.k_transform = nn.Linear(dict_embed_dim, query_size, bias=False)
         self.v_transform = nn.Linear(dict_embed_dim, query_size, bias=False)
         self.output_transform = nn.Linear(query_size, query_size, bias=False)
         self.pinyin_embedding = nn.Embedding(pinyin_vocab, query_size)
 
+    def _remap(self, weights_d: torch.Tensor, key_map: torch.Tensor, pinyin_map: torch.Tensor,
+                generator: torch.Generator | None) -> torch.Tensor:
+        """The sense mode's remap of the post-dropout weights, in f32."""
+        with f32_island(weights_d.device.type):
+            weights_d = weights_d.float()
+            if self.sense_mode == "token":
+                return sense_remap(weights_d, key_map, pinyin_map)
+            noise = None
+            if self.sense_mode == "gumbel" and self.training:
+                noise = gumbel_noise((*weights_d.shape[:2], self.max_senses), generator,
+                                     weights_d.device)
+            return sense_remap_grouped(weights_d, key_map, pinyin_map, self.max_senses,
+                                       self.sense_mode, self.gumbel_temperature, noise)
+
     def forward(self, x: torch.Tensor, dict_msg: DictMsg, pron_modified: torch.Tensor | None = None,
                 word_tokens: torch.Tensor | None = None, generator: torch.Generator | None = None):
         keys, values, key_map, pinyin, pinyin_map = dict_msg
+        device_type = x.device.type
         w_k, w_v = self.k_transform.weight, self.v_transform.weight  # [H, E]
         q = self.q_transform(x) * KEY_SIZE ** -0.5  # [B, T, H]
 
@@ -110,10 +185,13 @@ class S2PAAttention(nn.Module):
             weights = weights.reshape(B, T, L)
             context = F.linear(ctx_e.reshape(B, T, E).to(q.dtype), w_v.to(q.dtype))
             # the kernel's context used weights * mask; so does the remap
-            pron_weights = sense_remap(weights * mask.reshape(B, T, L), key_map, pinyin_map)
-        elif self.use_pallas and not self.training:  # K3 has no backward
-            k = F.linear(keys, w_k)  # [B, T, L, H]
-            v = F.linear(values, w_v)
+            pron_weights = self._remap(weights * mask.reshape(B, T, L), key_map, pinyin_map, generator)
+        elif self.use_pallas and not self.training and self.sense_mode == "token":
+            # K3 has no backward; it takes k and v in f32, projected in f32
+            # under amp too, as the JAX branch projects them
+            with f32_island(device_type):
+                k = F.linear(keys.float(), w_k)  # [B, T, L, H]
+                v = F.linear(values.float(), w_v)
             context, weights, pron_weights = s2pa_fused(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 key_map.to(torch.int32).contiguous(), pinyin_map.to(torch.int32).contiguous(),
@@ -123,12 +201,13 @@ class S2PAAttention(nn.Module):
             values = values.to(q.dtype)
             q_e = torch.matmul(q, w_k.to(q.dtype))  # q in bank space
             logits = torch.einsum("btle,bte->btl", keys, q_e).float()
-            logits = torch.where(key_map != 0, logits, S2PA_MASK_VALUE)
-            weights = torch.softmax(logits, dim=-1)
-            weights_d = dropout(weights, self.dropout_rate, self.training, generator)
+            with f32_island(device_type):
+                logits = torch.where(key_map != 0, logits, S2PA_MASK_VALUE)
+                weights = torch.softmax(logits, dim=-1)
+                weights_d = dropout(weights, self.dropout_rate, self.training, generator)
             ctx_e = torch.einsum("btl,btle->bte", weights_d.to(values.dtype), values)
             context = F.linear(ctx_e, w_v.to(ctx_e.dtype))
-            pron_weights = sense_remap(weights_d, key_map, pinyin_map)
+            pron_weights = self._remap(weights_d, key_map, pinyin_map, generator)
         context = self.output_transform(context)
 
         pinyin_emb = self.pinyin_embedding(pinyin.long()) * (pinyin != 0).to(x.dtype)[..., None]
@@ -144,14 +223,15 @@ class S2PATextEncoder(nn.Module):
 
     def __init__(self, word_vocab: int, hidden_channels: int, filter_channels: int, n_heads: int,
                  kernel_size: int, n_layers: int = 4, pinyin_vocab: int = 185,
-                 dict_embed_dim: int = 768, use_pallas: bool = False, p_dropout: float = 0.0):
+                 dict_embed_dim: int = 768, use_pallas: bool = False, p_dropout: float = 0.0,
+                 sense_mode: str = "token", max_senses: int = 10):
         super().__init__()
         self.hidden_channels = hidden_channels
         self.word_emb = nn.Embedding(word_vocab, hidden_channels)
         self.semantic_encoder = RelTransformerLayers(
             hidden_channels, filter_channels, n_heads, n_layers, kernel_size, p_dropout)
         self.s2pa_attention = S2PAAttention(hidden_channels, dict_embed_dim, pinyin_vocab, use_pallas,
-                                            p_dropout)
+                                            p_dropout, sense_mode, max_senses)
         self.linguistic_encoder = RelTransformerLayers(
             hidden_channels, filter_channels, n_heads, n_layers, kernel_size, p_dropout)
 
@@ -171,12 +251,13 @@ class DictEncoder(nn.Module):
 
     def __init__(self, word_vocab: int, hidden_size: int, num_heads: int = 2,
                  ffn_kernel_size: int = 5, pinyin_vocab: int = 185, dict_embed_dim: int = 768,
-                 use_pallas: bool = False, dropout: float = 0.0):
+                 use_pallas: bool = False, dropout: float = 0.0, sense_mode: str = "token",
+                 max_senses: int = 10):
         super().__init__()
         self.S2PA_module = S2PATextEncoder(
             word_vocab, hidden_size, hidden_size * 4, num_heads, ffn_kernel_size,
             pinyin_vocab=pinyin_vocab, dict_embed_dim=dict_embed_dim,
-            use_pallas=use_pallas, p_dropout=dropout)
+            use_pallas=use_pallas, p_dropout=dropout, sense_mode=sense_mode, max_senses=max_senses)
 
     def forward(self, word_tokens, dict_msg, pron_modified=None, generator=None):
         x, dict_attn, pron_attn, context = self.S2PA_module(word_tokens, dict_msg, pron_modified,

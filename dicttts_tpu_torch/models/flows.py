@@ -2,7 +2,8 @@
 
 Port of ``dicttts_tpu/models/flows.py`` (mean-only coupling, WN coupling
 net): forward (z_q -> z_p, for the KL in training) and reverse (sampling).
-Runs in f32. Parameter names follow the reference
+Runs in f32, with autocast off inside under amp (``ops/amp.f32_island``),
+as the JAX module shields itself from the bf16 activation dtype. Parameter names follow the reference
 (``flows.{2i}.pre/enc/post``; the odd slots are parameter-free channel
 flips), which ``convert_coupling_block`` reads.
 """
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from dicttts_tpu_torch.models.layers import linear_1x1
+from dicttts_tpu_torch.ops.amp import f32_island
 from dicttts_tpu_torch.models.wavenet import WN
 
 
@@ -63,16 +65,18 @@ class ResidualCouplingBlock(nn.Module):
         """Forward flow: z -> z_p, each coupling layer followed by its flip."""
         x, x_mask = x.float(), x_mask.float()
         g = None if g is None else g.float()
-        for i in range(0, len(self.flows), 2):
-            x = self.flows[i](x, x_mask, g)
-            x = self.flows[i + 1](x)
+        with f32_island(x.device.type):
+            for i in range(0, len(self.flows), 2):
+                x = self.flows[i](x, x_mask, g)
+                x = self.flows[i + 1](x)
         return x
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor, g: torch.Tensor | None = None) -> torch.Tensor:
         """Inverse flow: z_p -> z, undoing coupling layers last to first."""
         x, x_mask = x.float(), x_mask.float()
         g = None if g is None else g.float()
-        for i in reversed(range(0, len(self.flows), 2)):
-            x = self.flows[i + 1](x)
-            x = self.flows[i].reverse(x, x_mask, g)
+        with f32_island(x.device.type):
+            for i in reversed(range(0, len(self.flows), 2)):
+                x = self.flows[i + 1](x)
+                x = self.flows[i].reverse(x, x_mask, g)
         return x

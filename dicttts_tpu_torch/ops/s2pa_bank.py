@@ -246,19 +246,28 @@ class S2PABankAttend(torch.autograd.Function):
     backward. Saves the five inputs and, on the card, the slot order the
     forward computed (``slot_order``), never a gathered [N, L, E] copy; only qe gets a
     gradient (the bank is constant, the mask is a fixed keep-scale, wt and
-    km are integers)."""
+    km are integers).
+
+    Under autocast (amp) both passes run with autocast off: the kernels and
+    their plain versions take the dtypes they are given (the caller casts qe
+    to the bank dtype), K2 sees the forward's dtypes, and g_ctx arrives in
+    ctx_e's dtype."""
 
     @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, bank, wt, qe, km, mask):
-        ids, order = slot_order(wt) if bank.device.type == "cuda" else (None, None)
-        ctx.save_for_backward(bank, wt, qe, km, mask, ids, order)
-        return _fwd(bank, wt, qe, km, mask, None if ids is None else (ids, order))
+        with torch.autocast(bank.device.type, enabled=False):
+            ids, order = slot_order(wt) if bank.device.type == "cuda" else (None, None)
+            ctx.save_for_backward(bank, wt, qe, km, mask, ids, order)
+            return _fwd(bank, wt, qe, km, mask, None if ids is None else (ids, order))
 
     @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g_ctx, g_w):
         bank, wt, qe, km, mask, ids, order = ctx.saved_tensors
-        d_qe = _bwd(bank, wt, qe, km, mask, g_ctx.contiguous(), g_w.contiguous(),
-                    None if ids is None else (ids, order))
+        with torch.autocast(bank.device.type, enabled=False):
+            d_qe = _bwd(bank, wt, qe, km, mask, g_ctx.contiguous(), g_w.contiguous(),
+                        None if ids is None else (ids, order))
         return None, None, d_qe, None, None
 
 

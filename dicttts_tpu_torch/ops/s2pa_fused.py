@@ -14,6 +14,12 @@ kernel it takes any L and P, so no lane padding (``pad_dict_msg``) is done;
 H must be a multiple of 4 (16-byte rows). ``fused_kernel_plan`` asks the
 built library for the kernel's plan of a shape.
 
+Under amp the JAX package calls its kernel with a bf16 q and f32 k and v,
+computes in f32 and returns the outputs in q's dtype. So does this
+wrapper: the kernel takes f32 only, so a lower-precision q is upcast
+(exactly), the kernel runs unchanged, and ctx, w and pron are rounded to
+q's dtype. The plain version does the same, with autocast off.
+
 ``s2pa_fused`` takes the plain version for CPU tensors and launches the
 kernel for CUDA tensors; it never falls back from one to the other.
 """
@@ -53,8 +59,9 @@ def _check(q, k, v, key_map, pinyin_map):
         raise ValueError(f"key_map must be [{B}, {T}, {L}] int32, got {tuple(key_map.shape)} {key_map.dtype}")
     if pinyin_map.ndim != 3 or pinyin_map.shape[:2] != (B, T) or pinyin_map.dtype != torch.int32:
         raise ValueError(f"pinyin_map must be [{B}, {T}, P] int32, got {tuple(pinyin_map.shape)} {pinyin_map.dtype}")
-    if not (q.dtype == k.dtype == v.dtype):
-        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.dtype != v.dtype or not (q.dtype == k.dtype or (q.is_floating_point() and k.dtype == torch.float32)):
+        raise TypeError(f"q, k, v must share a dtype, or q be a float dtype with k and v float32: got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     devices = {t.device for t in (q, k, v, key_map, pinyin_map)}
     if len(devices) != 1:
         raise ValueError(f"inputs on several devices: {devices}")
@@ -80,11 +87,15 @@ def fused_kernel_plan(N: int, L: int, H: int, P: int) -> dict:
 def s2pa_fused(q, k, v, key_map, pinyin_map):
     """q: [B, T, H] (pre-scaled); k, v: [B, T, L, H]; key_map: [B, T, L]
     int32; pinyin_map: [B, T, P] int32 -> (ctx [B, T, H], w [B, T, L],
-    pron [B, T, P]), all in q's dtype."""
+    pron [B, T, P]), all in q's dtype. q may be bf16 or f16 with k and v
+    f32: it is upcast, and the outputs are rounded to its dtype."""
     _check(q, k, v, key_map, pinyin_map)
+    if q.dtype != k.dtype:
+        return tuple(o.to(q.dtype) for o in s2pa_fused(q.to(k.dtype), k, v, key_map, pinyin_map))
     device = q.device
     if device.type == "cpu":
-        return s2pa_fused_plain(q, k, v, key_map, pinyin_map)
+        with torch.autocast("cpu", enabled=False):
+            return s2pa_fused_plain(q, k, v, key_map, pinyin_map)
     if device.type != "cuda":
         raise ValueError(f"s2pa_fused runs on cpu or cuda, not {device}")
     if q.dtype != torch.float32:

@@ -79,7 +79,10 @@ class _Splits:
 
 def build_data_provider(cfg: dict) -> _Splits:
     data_dir = cfg.get("binary_data_dir", "")
-    if not data_dir or not os.path.exists(os.path.join(data_dir, "train.idx")):
+    # a split is .data/.idx or .rio/.rix (the JAX package requires train.idx
+    # even where train.rio exists)
+    if not data_dir or not any(os.path.exists(os.path.join(data_dir, f"train{ext}"))
+                               for ext in (".idx", ".rio")):
         raise FileNotFoundError(
             f"binary_data_dir {data_dir!r} has no binaries; binarize the corpus first "
             "(python -m dicttts_tpu.text.binarize --config ...)")

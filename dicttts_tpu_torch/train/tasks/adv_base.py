@@ -25,6 +25,21 @@ to the root of the second moment, decoupled weight decay applied as
 lr * wd * param. Parameters that got no gradient are stepped with a zero
 gradient, as optax does.
 
+``accumulate_grad_batches`` = k > 1 is optax ``MultiSteps`` around both
+optimizers, as in the JAX package: each micro-step folds its gradients into
+a running mean (optax's Welford rule, acc += (g - acc) / (n + 1)); the k-th
+one clips that mean, steps AdamW with the schedule read at the update
+count, and resets the mean; the others update nothing. ``step`` (and with
+it ``disc_start_steps`` and ``disc_interval``) counts micro-steps, the
+update counts count optimizer steps. A skipped generator micro-step (non-
+finite loss) and a gated-off discriminator leave their accumulation state
+as it was, micro-step count included, so the two can fall out of phase.
+The accumulators are part of ``state_dict``.
+
+Under ``amp`` (``ops/amp.py``) the model and discriminator passes run under
+autocast to bf16; the losses are computed with autocast off, on f32
+values. Parameters and optimizer state stay f32.
+
 Batches reach the steps through ``to_device`` (host arrays to tensors on
 the task's device, transfer dtypes upcast) and ``prepare_batch``, which
 resolves frame-ref batches (``use_device_frame_cache``: ``item_idx`` in
@@ -42,6 +57,7 @@ import numpy as np
 import torch
 
 from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
+from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dtype
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
 
@@ -100,14 +116,27 @@ class AdversarialTTSTask:
         self.schedule_g = rsqrt_schedule(cfg["lr"], cfg["warmup_updates"], cfg["hidden_size"])
         sched = cfg["discriminator_scheduler_params"]
         self.schedule_d = step_decay_schedule(cfg["disc_lr"], sched["step_size"], sched["gamma"])
+        self.accumulate = int(cfg["accumulate_grad_batches"])
+        if self.accumulate < 1:
+            raise ValueError(f"accumulate_grad_batches must be >= 1, got {self.accumulate}")
+        self.act_dtype = task_activation_dtype(cfg)
         self.uploads: dict = {}  # what _hold put on the device: bytes and seconds by name
+
+    def amp(self):
+        """The scope of the model and discriminator passes (``ops/amp.py``)."""
+        return amp_scope(self.device, self.act_dtype, bool(self.cfg.get("amp")))
+
+    def f32(self):
+        """The scope of the losses: autocast off."""
+        return f32_island(self.device.type)
 
     def _build_disc(self) -> MultiWindowDiscriminator:
         cfg = self.cfg
         return MultiWindowDiscriminator(
             time_lengths=(32, 64, 128)[:cfg["disc_win_num"]],
             freq_length=cfg["audio_num_mel_bins"], hidden_size=cfg["mel_disc_hidden_size"],
-            dropout_rate=cfg["disc_dropout"])
+            dropout_rate=cfg["disc_dropout"], norm_type=cfg["disc_norm"],
+            reduction=cfg["disc_reduction"])
 
     def _build_optimizers(self) -> None:
         cfg = self.cfg
@@ -117,9 +146,15 @@ class AdversarialTTSTask:
                                        eps=1e-8, weight_decay=cfg["weight_decay"])
         self.opt_d = torch.optim.AdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
                                        eps=opt_p["eps"], weight_decay=opt_p["weight_decay"])
-        self.step = 0  # train steps taken
+        self.step = 0  # train steps (micro-steps) taken
         self.updates_g = 0  # optimizer updates applied (the schedules' counts)
         self.updates_d = 0
+        # gradient accumulation (k > 1): each optimizer's running mean of its
+        # micro-steps' gradients and the count of micro-steps in it
+        self.acc = {}
+        if self.accumulate > 1:
+            self.acc = {name: {"grads": [torch.zeros_like(p) for p in m.parameters()], "n": 0}
+                        for name, m in (("g", self.model), ("d", self.disc))}
 
     def _hold(self, name: str, make) -> dict:
         """``make()``'s arrays as tensors on the device; its build and upload
@@ -187,25 +222,53 @@ class AdversarialTTSTask:
     def _adv_gen_loss(self, mel_pred, mel_lengths, generator=None, start_frames=None):
         """LSGAN-to-1 term of the generator objective; the discriminator is
         frozen, so the backward reaches the generator only."""
-        with frozen(self.disc):
+        with frozen(self.disc), self.amp():
             d_out = self.disc(mel_pred, mel_lengths, start_frames, generator)
-        return torch.mean(torch.square(d_out["y"] - 1.0) * d_out["win_valid"][None, :])
+        with self.f32():
+            return torch.mean(torch.square(d_out["y"].float() - 1.0) * d_out["win_valid"][None, :])
 
     def _disc_losses(self, mel_fake, mel_real, lengths, generator=None, start_frames=None):
         """Real and fake in one stacked pass, crop starts shared."""
         B = mel_real.shape[0]
-        out = self.disc(torch.cat([mel_real, mel_fake]), torch.cat([lengths, lengths]),
-                        start_frames, generator)
-        wv = out["win_valid"][None, :]
-        loss_r = torch.mean(torch.square(out["y"][:B] - 1.0) * wv)
-        loss_f = torch.mean(torch.square(out["y"][B:]) * wv)
+        with self.amp():
+            out = self.disc(torch.cat([mel_real, mel_fake]), torch.cat([lengths, lengths]),
+                            start_frames, generator)
+        with self.f32():
+            y = out["y"].float()
+            wv = out["win_valid"][None, :]
+            loss_r = torch.mean(torch.square(y[:B] - 1.0) * wv)
+            loss_f = torch.mean(torch.square(y[B:]) * wv)
         return loss_r + loss_f, {"r": loss_r, "f": loss_f}
 
-    def _update(self, opt, params, max_norm: float, lr: float) -> torch.Tensor:
-        """Clip, set the scheduled lr, step; returns the pre-clip norm."""
+    def _micro_step(self, name: str, opt, params, max_norm: float, schedule):
+        """Apply this micro-step's gradients (``.grad``; None counts as zero,
+        as optax counts it) to optimizer ``name`` ('g' or 'd'). k = 1: the
+        update at once. k > 1: fold them into the running mean; on the k-th
+        micro-step put the mean in ``.grad``, update, and reset. Returns the
+        pre-clip norm of an update, or None when no update was applied."""
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        acc = self.acc.get(name)
+        if acc is not None:
+            n = acc["n"]
+            for a, p in zip(acc["grads"], params):
+                a.add_((p.grad - a) / (n + 1))
+            if n < self.accumulate - 1:
+                acc["n"] = n + 1
+                return None
+            for a, p in zip(acc["grads"], params):
+                p.grad.copy_(a)
+                a.zero_()
+            acc["n"] = 0
+        count = "updates_g" if name == "g" else "updates_d"
+        norm = self._update(opt, params, max_norm, schedule(getattr(self, count)))
+        setattr(self, count, getattr(self, count) + 1)
+        return norm
+
+    def _update(self, opt, params, max_norm: float, lr: float) -> torch.Tensor:
+        """Clip, set the scheduled lr, step; returns the pre-clip norm.
+        Every parameter has a ``.grad`` (``_micro_step`` sees to it)."""
         norm = clip_by_global_norm_([p.grad for p in params], max_norm)
         for group in opt.param_groups:
             group["lr"] = lr
@@ -238,16 +301,16 @@ class AdversarialTTSTask:
             loss_d.backward()
         metrics = {**{k: v.detach() for k, v in {**g_losses, **d_losses}.items()},
                    "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()}
+        updated = {}
         if bool(torch.isfinite(loss_g)):  # the step's one host sync
-            metrics["grad_norm_g"] = self._update(
-                self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
-                self.schedule_g(self.updates_g))
-            self.updates_g += 1
+            updated["grad_norm_g"] = self._micro_step(
+                "g", self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
+                self.schedule_g)
         if disc_on:
-            metrics["grad_norm_d"] = self._update(
-                self.opt_d, list(self.disc.parameters()), self.cfg["discriminator_grad_norm"],
-                self.schedule_d(self.updates_d))
-            self.updates_d += 1
+            updated["grad_norm_d"] = self._micro_step(
+                "d", self.opt_d, list(self.disc.parameters()), self.cfg["discriminator_grad_norm"],
+                self.schedule_d)
+        metrics.update({k: v for k, v in updated.items() if v is not None})
         self.step += 1
         return metrics
 
@@ -262,10 +325,14 @@ class AdversarialTTSTask:
         return losses
 
     def state_dict(self) -> dict:
-        """Everything a resume needs; device constants (the bank) excluded."""
-        return {"params_g": self.model.state_dict(), "params_d": self.disc.state_dict(),
-                "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
-                "step": self.step, "updates_g": self.updates_g, "updates_d": self.updates_d}
+        """Everything a resume needs, the accumulators (k > 1) included;
+        device constants (the bank) excluded."""
+        state = {"params_g": self.model.state_dict(), "params_d": self.disc.state_dict(),
+                 "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
+                 "step": self.step, "updates_g": self.updates_g, "updates_d": self.updates_d}
+        for name, acc in self.acc.items():
+            state[f"acc_{name}"] = {"grads": list(acc["grads"]), "n": acc["n"]}
+        return state
 
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["params_g"])
@@ -274,3 +341,8 @@ class AdversarialTTSTask:
         self.opt_d.load_state_dict(state["opt_d"])
         self.step, self.updates_g, self.updates_d = (
             int(state["step"]), int(state["updates_g"]), int(state["updates_d"]))
+        for name, acc in self.acc.items():
+            saved = state[f"acc_{name}"]
+            for a, v in zip(acc["grads"], saved["grads"], strict=True):
+                a.copy_(v)
+            acc["n"] = int(saved["n"])

@@ -11,16 +11,25 @@ The dict bank reaches S2PA in one of two ways, by the JAX package's rule:
 - ``use_device_dict_bank`` with a bank (given, or from ``data.ds``), as
   the recipe sets it: the task holds the ``[V, L, E]`` bank and its maps
   on the device in the dtype they arrive in (the recipe's bank is bf16:
-  ``device_bank()`` with no dtype), and batches carry word ids only. S2PA
-  runs the gather-fused kernels over the un-gathered bank
-  (``s2pa_bank_fused``, which counts only with a device bank): K1 forward,
-  K2 backward, in the bank's dtype, with the query cast to it as the JAX
-  fused branch casts it.
+  ``device_bank()`` with no dtype; under amp an f32 bank is held as bf16,
+  as the JAX task holds it), and batches carry word ids only. With
+  ``s2pa_bank_fused`` (the recipe) S2PA runs the gather-fused kernels over
+  the un-gathered bank: K1 forward, K2 backward, in the bank's dtype, with
+  the query cast to it as the JAX fused branch casts it. Without it the
+  bank's rows are gathered by word id in the bank's dtype and S2PA runs
+  eagerly.
 - gathered banks: with ``use_device_dict_bank`` off, or in a task built
   with neither data nor bank (as the inferencer builds it), batches carry
   their own ``keys`` / ``values`` [B, Tw, L, E] and ``key_map`` /
   ``pinyin`` / ``pinyin_map``. S2PA runs eagerly; in eval mode with
   ``use_pallas_s2pa`` it runs the fused kernel K3, which has no backward.
+
+The recipe's other settings take every value the JAX task takes: ``amp``
+and ``amp_bf16_activations`` (``ops/amp.py``), ``accumulate_grad_batches``
+(``adv_base.py``), ``use_spk_id`` with ``num_spk`` (batches then carry
+``spk_ids``), ``use_prior_glow`` (the FVAE's prior flow),
+``s2pa_sense_mode`` with ``s2pa_max_senses``, ``disc_norm`` and
+``disc_reduction``.
 
 Built as ``run.py`` builds it, ``DictTTSTask(cfg, data)`` takes the bank
 from ``data.ds.device_bank()`` and its batches from ``data``; with
@@ -67,7 +76,7 @@ DEFAULTS = {
     "fvae_enc_dec_hidden": 192, "fvae_kernel_size": 5, "fvae_enc_n_layers": 8,
     "fvae_dec_n_layers": 4, "use_prior_glow": True, "prior_glow_hidden": 64,
     "glow_kernel_size": 3, "prior_glow_n_blocks": 4, "use_pallas_s2pa": False,
-    "use_device_dict_bank": True, "s2pa_bank_fused": True, "use_spk_id": False,
+    "use_device_dict_bank": True, "s2pa_bank_fused": True, "use_spk_id": False, "num_spk": 1,
     # losses
     "mel_loss": "ssim:0.5|l1:0.5", "lambda_kl": 1.0, "kl_min": 0.002, "dur_scale": "log",
     # discriminator and GAN schedule
@@ -85,9 +94,6 @@ DEFAULTS = {
 # hard-coded in the JAX package (models/discriminator.py Disc2DBlockStack)
 DISC_DROPOUT = 0.25
 
-# settings the JAX package supports and this port does not yet
-_REQUIRED = {"use_prior_glow": True, "use_spk_id": False, "accumulate_grad_batches": 1,
-             "amp": False, "s2pa_bank_fused": True, "disc_norm": "in", "disc_reduction": "stack"}
 GATHERED_KEYS = ("keys", "values", "key_map", "pinyin", "pinyin_map")
 
 
@@ -103,9 +109,6 @@ class DictTTSTask(AdversarialTTSTask):
 
     def __init__(self, cfg: dict | None = None, data=None, device="cuda", *, bank: dict | None = None):
         self.cfg = {**DEFAULTS, "disc_dropout": DISC_DROPOUT, **(cfg or {})}
-        for key, value in _REQUIRED.items():
-            if self.cfg[key] != value:
-                raise ValueError(f"the port supports only {key}={value!r}, got {self.cfg[key]!r}")
         self.device = resolve_device(device)
         self.data = data
         self._init_adv(self.cfg)
@@ -119,6 +122,7 @@ class DictTTSTask(AdversarialTTSTask):
                              ".ds.device_bank (give the task run.py's provider)")
         # the JAX rule: the device bank needs the flag and a bank to hold
         self.use_device_bank = want_bank and (bank is not None or data is not None)
+        self.bank_fused = self.use_device_bank and bool(self.cfg["s2pa_bank_fused"])
 
         def read_bank():
             b = bank if bank is not None else ds.device_bank(
@@ -127,6 +131,11 @@ class DictTTSTask(AdversarialTTSTask):
             return {k: b[k] for k in BANK_KEYS}
 
         self.bank = self._hold("bank", read_bank) if self.use_device_bank else None
+        if self.bank is not None and self.act_dtype is not None:
+            # under amp an f32 bank is held in the activation dtype (JAX
+            # train/tasks/dict_tts.py _bank_dtype)
+            self.bank = {k: v.to(self.act_dtype) if v.dtype == torch.float32 else v
+                         for k, v in self.bank.items()}
         self._pinyin_list = self._vocoder = None  # read at the first test batch
 
     def build_model(self) -> DictTTS:
@@ -142,7 +151,10 @@ class DictTTSTask(AdversarialTTSTask):
             fvae_kernel_size=c["fvae_kernel_size"], fvae_enc_n_layers=c["fvae_enc_n_layers"],
             fvae_dec_n_layers=c["fvae_dec_n_layers"], prior_flow_hidden=c["prior_glow_hidden"],
             prior_flow_kernel_size=c["glow_kernel_size"],
-            prior_flow_n_blocks=c["prior_glow_n_blocks"], use_pallas_s2pa=c["use_pallas_s2pa"])
+            prior_flow_n_blocks=c["prior_glow_n_blocks"], use_prior_flow=bool(c["use_prior_glow"]),
+            num_spk=c["num_spk"] if c["use_spk_id"] else 0, use_pallas_s2pa=c["use_pallas_s2pa"],
+            s2pa_sense_mode=c.get("s2pa_sense_mode", "token"),
+            s2pa_max_senses=c.get("s2pa_max_senses", 10))
 
     def build_state(self, seed: int) -> None:
         """Seeded generator and discriminator on the device, both optimizers,
@@ -163,8 +175,9 @@ class DictTTSTask(AdversarialTTSTask):
         return self.data.test_batches()
 
     def _dict_msg(self, batch: dict) -> DictMsg:
-        """The batch's gathered bank; or the device bank, un-gathered, with
-        its int maps gathered by word id."""
+        """The batch's gathered bank; or the device bank, un-gathered
+        (``s2pa_bank_fused``) or gathered by word id in its dtype, with its
+        int maps gathered by word id."""
         if self.bank is None:
             missing = [k for k in GATHERED_KEYS if k not in batch]
             if missing:
@@ -173,17 +186,20 @@ class DictTTSTask(AdversarialTTSTask):
             return DictMsg(*(batch[k] for k in GATHERED_KEYS))
         wt = batch["word_tokens"].long()
         b = self.bank
-        return DictMsg(b["keys"], b["keys"], b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
+        keys = b["keys"] if self.bank_fused else b["keys"][wt]
+        return DictMsg(keys, keys, b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
 
     def _gen_losses(self, batch: dict, generator=None, train: bool = True, adv_w: float = 1.0,
                     eps=None, start_frames=None):
-        out = self.model(batch["word_tokens"], self._dict_msg(batch), batch.get("pron_modified"),
-                         mel2word=batch["mel2word"], tgt_mels=batch["mels"], noise=eps,
-                         generator=generator)
-        losses = {"kl": L.clamp_kl(out["kl"] * self.cfg["lambda_kl"], self.cfg["kl_min"])}
-        L.add_mel_losses(self.mel_loss_spec, out["mel_out"], batch["mels"], losses)
-        losses["wdur"] = L.word_dur_loss(out["dur"], batch["mel2word"], batch["word_lengths"],
-                                         self.cfg["dur_scale"])
+        with self.amp():
+            out = self.model(batch["word_tokens"], self._dict_msg(batch), batch.get("pron_modified"),
+                             mel2word=batch["mel2word"], spk_ids=batch.get("spk_ids"),
+                             tgt_mels=batch["mels"], noise=eps, generator=generator)
+        with self.f32():
+            losses = {"kl": L.clamp_kl(out["kl"].float() * self.cfg["lambda_kl"], self.cfg["kl_min"])}
+            L.add_mel_losses(self.mel_loss_spec, out["mel_out"], batch["mels"], losses)
+            losses["wdur"] = L.word_dur_loss(out["dur"].float(), batch["mel2word"],
+                                             batch["word_lengths"], self.cfg["dur_scale"])
         if train and self.lambda_adv > 0:
             losses["a"] = (self._adv_gen_loss(out["mel_out"], batch["mel_lengths"], generator,
                                               start_frames) * self.lambda_adv * adv_w)
@@ -196,10 +212,14 @@ class DictTTSTask(AdversarialTTSTask):
         ``max_frames``, a sampled prior, and the argmax pinyin decode."""
         self.model.eval()
         dm = self._dict_msg(batch)
-        out = self.model(batch["word_tokens"], dm, batch.get("pron_modified"),
-                         max_frames=self.cfg["max_frames"], noise=noise, generator=generator)
+        with self.amp():
+            out = self.model(batch["word_tokens"], dm, batch.get("pron_modified"),
+                             spk_ids=batch.get("spk_ids"), max_frames=self.cfg["max_frames"],
+                             noise=noise, generator=generator)
+        # pron_attn is bf16 under amp (K3 rounds its outputs to q's dtype)
         return {"mel_out": out["mel_out"], "mel2word": out["mel2word"],
-                "pron_attn": out["pron_attn"], "pinyin_pred": pinyin_decode(out["pron_attn"], dm.pinyin)}
+                "pron_attn": out["pron_attn"].float(),
+                "pinyin_pred": pinyin_decode(out["pron_attn"], dm.pinyin)}
 
     def after_test_step(self, batch_idx: int, batch: dict, out: dict) -> dict:
         """Write each item's mel (``<work_dir>/generated/<item>.mel.npy``, cut

@@ -30,6 +30,7 @@ from dicttts_tpu.utils.text_encoder import TokenTextEncoder as JEncoder
 from dicttts_tpu_torch.data import collate as tcollate
 from dicttts_tpu_torch.data import datasets as tdata
 from dicttts_tpu_torch.data.providers import SyntheticDictTTSProvider as TSynth
+from dicttts_tpu_torch.data.recordio import convert_indexed_dataset
 from dicttts_tpu_torch.ops.pitch import norm_interp_f0
 from dicttts_tpu_torch.utils import indexed_dataset as tidx
 from dicttts_tpu_torch.utils.prefetch import prefetch_iterator
@@ -152,9 +153,18 @@ def test_the_recipe_refuses_per_utterance_banks_and_rio_corpora(tmp_path):
     # the dataset opens such a corpus and defers reading dict_embed to the first item
     ds = tdata.TTSBinaryDataset(CORPUS, "valid", _cfg(use_device_dict_bank=False), "dict")
     assert len(ds) == 18 and ds._dict_ds is None
+    # .rio corpora are ported now (tests/test_torch_recordio.py): a split's
+    # .rio is preferred, and one the native reader cannot open raises
+    for name in ("word_set.json", "pinyin_encoder.pkl", "valid_lengths.npy"):
+        os.symlink(os.path.join(CORPUS, name), tmp_path / name)
     (tmp_path / "valid.rio").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(OSError, match="valid.rio"):
         tdata.TTSBinaryDataset(str(tmp_path), "valid", _cfg(), "dict")
+    convert_indexed_dataset(os.path.join(CORPUS, "valid"), str(tmp_path / "valid"))
+    rio = tdata.TTSBinaryDataset(str(tmp_path), "valid", _cfg(), "dict")
+    assert len(rio) == 18 and rio.ds.is_native
+    item, want = rio[5], tdata.TTSBinaryDataset(CORPUS, "valid", _cfg(), "dict")[5]
+    assert set(item) == set(want) and all(np.array_equal(item[k], want[k]) for k in want)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -259,8 +259,16 @@ def test_which_bank_the_task_reads():
     outs = [t.test_step(bt, noise=torch.zeros(2, 1548 // 4, 4))
             for t, bt in ((fused, tb), (neither, {**tb, **gathered}))]
     torch.testing.assert_close(outs[0]["mel_out"], outs[1]["mel_out"], rtol=0, atol=1e-5)
-    with pytest.raises(ValueError, match="s2pa_bank_fused"):
-        DictTTSTask({**base, "s2pa_bank_fused": False}, device="cpu", bank=bank)
+    # s2pa_bank_fused off (ported now, tests/test_torch_dict_tts_options.py):
+    # the task gathers the device bank's rows by word id itself
+    unfused = DictTTSTask({**base, "s2pa_bank_fused": False}, device="cpu", bank=bank)
+    assert unfused.use_device_bank and not unfused.bank_fused
+    for a, g in zip(unfused._dict_msg({"word_tokens": wt}), dm_g):
+        assert torch.equal(a, g)
+    unfused.build_state(4)
+    unfused.model.load_state_dict(fused.model.state_dict())
+    out = unfused.test_step(tb, noise=torch.zeros(2, 1548 // 4, 4))
+    torch.testing.assert_close(out["mel_out"], outs[1]["mel_out"], rtol=0, atol=0)
     with pytest.raises(ValueError, match="gathered bank"):
         neither._dict_msg({"word_tokens": wt})
     with pytest.raises(ValueError, match="use_device_dict_bank is false"):

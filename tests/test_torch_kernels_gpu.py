@@ -7,7 +7,8 @@ has only PyTorch; there, skip the JAX-importing conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 
 Tolerances: f32 K1 w atol 2e-6 and ctx atol 2e-5, K3 atol 1e-5 (the JAX
-package's own for these kernels); bf16 K1 ctx atol 2**-7 * max|ctx|, two
+package's own for these kernels), K3 under amp (bf16 q, outputs rounded
+to bf16) one bf16 rounding, rtol 2**-7; bf16 K1 ctx atol 2**-7 * max|ctx|, two
 bf16 ulps, because the output and w*mask are rounded to bf16 and an f32
 last-bit difference can flip a rounding. K2 f32 d_qe atol 2e-5 * max|d_qe|
 (summation order only); bf16 d_qe 2**-7 * max|d_qe| (d_logits and d_qe are
@@ -312,6 +313,25 @@ def test_fused_kernel_paths_match_plain(cuda, shape, path):
     if pad:  # pad words: uniform weights over their own L, no pron
         torch.testing.assert_close(w[:, T - pad:], torch.full_like(w[:, T - pad:], 1.0 / L), rtol=0, atol=1e-7)
         assert (out[2][:, T - pad:] == 0).all()
+
+
+@pytest.mark.parametrize("shape", [(1, 32, 56, 192, 8, 4), (16, 32, 56, 192, 8, 6)])
+def test_fused_kernel_under_amp_matches_plain(cuda, shape):
+    """A bf16 q with f32 k and v (the inference under amp): the kernel runs
+    on q upcast and its outputs are rounded to bf16, equal to the plain
+    version's f32 outputs rounded, to one bf16 rounding (K3's f32 atol 1e-5
+    can flip a rounding)."""
+    B, T, L, H, P, pad = shape
+    q, k, v, km, pm = _fused_args(cuda, 6, B, T, L, H, P, pad)
+    qb = q.to(torch.bfloat16)
+    before = s2pa_fused.launches
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        out = s2pa_fused(qb, k, v, km, pm)
+    torch.cuda.synchronize()
+    assert s2pa_fused.launches == before + 1
+    for a, b in zip(out, s2pa_fused_plain(qb.float(), k, v, km, pm)):
+        assert a.dtype == torch.bfloat16
+        torch.testing.assert_close(a.float(), b.to(torch.bfloat16).float(), rtol=2 ** -7, atol=1e-5)
 
 
 @pytest.mark.parametrize("shape", [(1, 32, 56, 192, 8), (16, 64, 96, 192, 8), (4, 100, 200, 192, 8)])
