@@ -91,13 +91,32 @@ Phases, each announced on its own line:
     on the card at tests/test_torch_amp.py's small widths, inputs and
     weights: the largest loss gap within twice the JAX package's own
     amp-vs-f32 gap on those inputs, measured on the CPU by that test.
+11. the offline pipeline and vocoder training, which launch none of the
+    three kernels: (a) 120 wavs written from the seed (tones of 1.5-4 s
+    whose f0 glides within 90-155 Hz, after 0.15 s of silence) paired with
+    the first rows of the repo's metadata (texts and phones), binarized by
+    ``python -m dicttts_tpu_torch.text.binarize``'s main on the card with
+    the recipe's config (dict_embed_dim 768), with_wav and with_f0cwt:
+    the seeded f0 recovered within 2 %, one chunk's mel and f0 on the card
+    against the CPU, every item's wav and frames consistent, the bank
+    holding every word id; items per second, card ms per chunk for the mel
+    and the f0, the bank's seconds and bytes, the split sizes; (b) run.main
+    with configs/datasets/biaobei/hifigan.yaml (generator 512 channels,
+    MPD + MSD, 24 crops of 8192 samples) on those binaries with
+    disc_start_steps 2: 2 steps with the discriminator and its optimizer
+    untouched, a resume to 8 with them trained, a resume to 10, --infer
+    (wavs of T_mel * 256 samples); step ms of G-only and GAN steps, a
+    profiled GAN step (top kernels, the device's busy time), peak memory,
+    host wait, and one step under amp beside one in f32; (c) one
+    HiFi-GAN step on the card and on the CPU from the same weights and
+    crops at width 32: every loss and both gradient norms.
 
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b, 8, 9 and 10 remove.
+temporary directories that phases 7b, 8, 9, 10 and 11 remove.
 """
 
 from __future__ import annotations
@@ -145,6 +164,23 @@ RECIPE_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml"
 RECIPE_STEPS, RESUME_STEPS = 16, 2  # two epochs of the train split's 8 batches
 CORPUS_SPLITS = {"train": 324, "valid": 18, "test": 18}  # the repo's corpus, .prod_corpus/binary
 CORPUS_FILES = ("word_set.json", "phone_set.json", "pinyin_encoder.pkl", "spk_map.json")
+# phase 11: the offline pipeline and HiFi-GAN training
+VOCODER_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/hifigan.yaml"
+VOC_ROWS = 120  # 12 test, 12 valid and 96 train rows: 4 batches of the recipe's 24 crops
+VOC_LEAD_S = 0.15  # each wav opens with this much silence (unvoiced frames)
+# seeded f0 glides stay below 160 Hz, where twice the period lies past the
+# extractor's lag band (22050 / 80 samples), so its subharmonic picks
+# (tests/test_torch_binarizer.py) cannot occur and the f0 must be recovered
+VOC_F0_HZ = (90.0, 155.0)
+VOC_F0_RTOL = 0.02
+# the card-vs-CPU f0 check also runs a chunk of glides in this band (the
+# corpus voice's), where the subharmonic picks and near-ties between lags occur
+VOC_F0_HIGH_HZ = (160.0, 330.0)
+VOC_CHUNK = 16  # wavs in the chunk run on the card and on the CPU
+# a frame whose normalized ACF spans less than this over the lag band has no
+# peak (seeded tones: voiced frames span 1.2 at their 1st percentile, frames
+# at a silence's edge 1e-6 to 2e-3)
+F0_FLAT = 1e-2
 
 
 def say(msg: str) -> None:
@@ -1051,7 +1087,7 @@ def sandhi_route():
     SandhiProcessor runs), else ("fixture", FixedSandhi) with the committed
     overrides of the PER sentences (tests/sandhi_per_test_set.json, which
     tests/test_torch_text.py holds to the JAX engine)."""
-    from dicttts_tpu_torch.infer import FixedSandhi
+    from dicttts_tpu_torch.text.sandhi import FixedSandhi
 
     try:
         import jieba  # noqa: F401
@@ -1331,37 +1367,57 @@ def finite_run(trainer, task):
     return vals, finite and all(bool(torch.isfinite(p).all()) for p in task.model.parameters())
 
 
-def profile_fft(task, batch, smi):
-    """One train step under torch.profiler: its top kernels, and the device
-    time in kernels whose names say FFT (cuDNN's FFT convolutions)."""
+def profile_step(step, label, smi, top=10):
+    """One call of step() under torch.profiler, after one call outside it
+    (the shape's first: cuDNN's choices and the allocator): its wall ms,
+    the device's busy ms, the device time in kernels whose names say FFT
+    (cuDNN's FFT convolutions), and the top kernels. None where the
+    profiler recorded no device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
-    dev_batch = task.to_device({k: v for k, v in batch.items() if k != "_meta"})
-    task.train_step(dev_batch, gen)  # this shape's first step: cuDNN's choices and the allocator
+    step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        task.train_step(dev_batch, gen)
+        step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    # device events without the ranges that annotate them (Optimizer.step#...)
+    def kernel(e):
+        return (e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)
+                and "#" not in e.key)
+
+    events = [e for e in prof.key_averages() if kernel(e) and e.self_device_time_total > 0]
+    if not events:
+        say(f"profiler: no device time recorded for the {label} (its breakdown is not measured)")
+        return None
     busy = sum(e.self_device_time_total for e in events) / 1e3
+    # the time some kernel ran: the union of the kernels' intervals, in ms
+    spans, covered, end = sorted((e.time_range.start, e.time_range.end) for e in prof.events() if kernel(e)), 0.0, 0.0
+    for a, b in spans:
+        covered += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    covered /= 1e3
     fft = [e for e in events if "fft" in e.key.lower()]
     fft_ms = sum(e.self_device_time_total for e in fft) / 1e3
-    shape = tuple(batch["mel2word"].shape)
-    if not events:
-        say("profiler: no device time recorded (FFT share not measured)")
-        return {"shape": shape, "fft_kernels": None}
-    say(f"amp step {shape[0]}x{shape[1]} profiled: {wall_ms:.1f} ms wall, device busy {busy:.1f} ms; "
-        f"kernels named FFT: {len(fft)} kinds, {fft_ms:.2f} ms ({100 * fft_ms / max(busy, 1e-9):.1f} % "
-        f"of device time); on {smi}")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
+    say(f"{label} profiled: {wall_ms:.1f} ms wall, kernels {busy:.1f} ms summed, some kernel running "
+        f"{covered:.1f} ms (idle {100 * max(1 - covered / wall_ms, 0.0):.1f} % of the wall); kernels named "
+        f"FFT: {len(fft)} kinds, {fft_ms:.2f} ms ({100 * fft_ms / max(busy, 1e-9):.1f} % of kernel time); on {smi}")
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
+    for e in ranked:
         say(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:5d} x  {e.key[:110]}")
-    return {"shape": shape, "wall_ms": wall_ms, "busy_ms": busy, "fft_kernels": [e.key[:80] for e in fft],
-            "fft_ms": fft_ms}
+    return {"wall_ms": wall_ms, "busy_ms": busy, "covered_ms": covered, "fft_kernels": [e.key[:80] for e in fft],
+            "fft_ms": fft_ms, "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in ranked]}
+
+
+def profile_fft(task, batch, smi):
+    """Phase 10a's profiled train step of ``batch``."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    dev_batch = task.to_device({k: v for k, v in batch.items() if k != "_meta"})
+    shape = tuple(batch["mel2word"].shape)
+    prof = profile_step(lambda: task.train_step(dev_batch, gen), f"amp step {shape[0]}x{shape[1]}", smi)
+    return {"shape": shape, "fft_kernels": None} if prof is None else {"shape": shape, **prof}
 
 
 def amp_recipe(root, binary, smi, recipe_report):
@@ -1593,6 +1649,372 @@ def amp_vs_f32_step(device, smi):
     return launches
 
 
+def seeded_tone(rng, f0_hz):
+    """VOC_LEAD_S of silence, then a tone of 1.5-4 s whose f0 glides
+    linearly between two values drawn from f0_hz, with 2 harmonics and white
+    noise, at 22050 Hz. Returns (wav, (lead samples, f0 at the tone's first
+    and last sample, tone samples))."""
+    n, lead = int(SAMPLE_RATE * rng.uniform(1.5, 4.0)), int(SAMPLE_RATE * VOC_LEAD_S)
+    lo, hi = rng.uniform(*f0_hz, 2)
+    ph = 2 * np.pi * np.cumsum(np.linspace(lo, hi, n)) / SAMPLE_RATE
+    tone = 0.3 * np.sin(ph) + 0.1 * np.sin(2 * ph) + 0.05 * np.sin(3 * ph) + 0.005 * rng.randn(n)
+    return np.concatenate([np.zeros(lead), tone]).astype(np.float32), (lead, lo, hi, n)
+
+
+def seeded_wavs(raw, rows, rng):
+    """A ``seeded_tone`` in VOC_F0_HZ for each metadata row, written as
+    16-bit PCM. Returns {item_name: the tone's truth}."""
+    from dicttts_tpu_torch.vocoders.hifigan import save_wav
+
+    truth = {}
+    for row in rows:
+        wav, truth[row[0]] = seeded_tone(rng, VOC_F0_HZ)
+        row[1] = os.path.join(raw, f"{row[0]}.wav")
+        save_wav(row[1], wav)
+    return truth
+
+
+def seeded_f0_frames(f0, truth):
+    """Frames of one seeded tone's f0 track: (inside: the 2048-sample window
+    lies in the tone, silent: it lies in the lead, voiced: inside and
+    voiced, the relative error of the voiced frames against the seeded f0
+    at the frame's center)."""
+    lead, lo, hi, n = truth
+    c = np.arange(len(f0)) * HOP
+    inside = (c - 1024 >= lead) & (c + 1024 <= lead + n)
+    silent = c + 1024 < lead
+    f_true = lo + (hi - lo) * (c - lead) / (n - 1)
+    voiced = inside & (f0 > 0)
+    return inside, silent, voiced, np.abs(f0[voiced] - f_true[voiced]) / f_true[voiced]
+
+
+def check_seeded_f0(items, truth):
+    """Voiced frames inside the tone within VOC_F0_RTOL of the seeded f0, at
+    least 95 % of those frames voiced, and every frame whose window lies in
+    the silent lead unvoiced. Returns (largest relative error, frames
+    checked)."""
+    worst, n_checked = 0.0, 0
+    for item in items:
+        f0 = item["f0"]
+        inside, silent, voiced, rel = seeded_f0_frames(f0, truth[item["item_name"]])
+        if (f0[silent] != 0).any() or voiced.sum() < 0.95 * inside.sum() or (rel > VOC_F0_RTOL).any():
+            raise AssertionError(f"{item['item_name']}: seeded f0 not recovered (voiced {voiced.sum()} of "
+                                 f"{inside.sum()}, max rel err {rel.max():.3e}, lead voiced "
+                                 f"{(f0[silent] != 0).sum()})")
+        worst, n_checked = max(worst, float(rel.max())), n_checked + int(voiced.sum())
+    return worst, n_checked
+
+
+def f0_disagreement(got, want, rtol):
+    """Two runs of ``ops.f0.autocorr_f0_frames`` on the same frames, each
+    (f0, peak lag, band spread) in numpy, against each other. Frames set
+    apart and counted: voicing flips (voiced on one side only); flat frames
+    (both voiced, outside rtol, either side's band spread below F0_FLAT: a
+    window that holds a silence's edge, whose ACF is the window's own, so
+    the pick near f0_max is rounding noise); other-lag picks (both voiced,
+    outside rtol, the integer peak differs: an argmax near-tie). Every other
+    voiced frame is held to rtol. Returns (voicing flips, those of them at
+    a flat frame, flat frames, other-lag picks, the largest relative error
+    of the rest)."""
+    (fg, pg, sg), (fw, pw, sw) = got, want
+    fg, fw = fg.astype(np.float64), fw.astype(np.float64)
+    both = (fg > 0) & (fw > 0)
+    rel = np.zeros(len(fw))
+    rel[both] = np.abs(fg[both] - fw[both]) / fw[both]
+    out, no_peak = both & (rel > rtol), np.minimum(sg, sw) < F0_FLAT
+    flat = out & no_peak
+    other = out & ~flat & (pg != pw)
+    vflips = (fg > 0) != (fw > 0)
+    return (int(vflips.sum()), int((vflips & no_peak).sum()), int(flat.sum()), int(other.sum()),
+            float(rel[both & ~flat & ~other].max(initial=0.0)))
+
+
+def mel_frame_error(got, want) -> float:
+    """The largest |10^got - 10^want| of a frame over that frame's loudest
+    bin of ``want`` (log10 mels): f32 FFT rounding scales with a frame's
+    energy, so bins near the 1e-6 floor of a quiet frame differ most in log10."""
+    lin_g, lin_w = 10.0 ** got.astype(np.float64), 10.0 ** want.astype(np.float64)
+    return float((np.abs(lin_g - lin_w) / lin_w.max(-1, keepdims=True)).max())
+
+
+def binarize_on_card(root, smi):
+    """Phase 11a: wavs written from the seed for the first VOC_ROWS rows of
+    the repo's metadata (their texts and phones), binarized by the port's
+    command line on the card with the recipe's config (dict_tts.yaml:
+    dict_embed_dim 768) and with_wav, with_f0cwt. Returns (binary dir,
+    report)."""
+    from dicttts_tpu_torch.data.collate import shape_bucket
+    from dicttts_tpu_torch.ops.f0 import autocorr_f0_frames, batched_f0
+    from dicttts_tpu_torch.ops.mel import batched_log10_mel
+    from dicttts_tpu_torch.text import binarize
+    from dicttts_tpu_torch.text.binarizer import ZhBinarizer
+    from dicttts_tpu_torch.utils.indexed_dataset import IndexedDataset
+    from dicttts_tpu_torch.utils.text_encoder import TokenTextEncoder
+    from dicttts_tpu_torch.vocoders.hifigan import load_wav
+
+    corpus = os.path.join(REPO, ".prod_corpus")
+    meta, dict_path = os.path.join(corpus, "processed", "metadata_phone.csv"), os.path.join(corpus, "zh-dict.json")
+    if not (os.path.exists(meta) and os.path.exists(dict_path)):
+        raise FileNotFoundError(f"phase 11 needs the repo's {meta} and {dict_path}")
+    raw, proc, binary = (os.path.join(root, d) for d in ("raw", "processed", "binary"))
+    for d in (raw, proc):
+        os.makedirs(d)
+    with open(meta) as f:
+        rows = list(csv.reader(f))[:VOC_ROWS]
+    truth = seeded_wavs(raw, rows, np.random.RandomState(SEED + 11))
+    with open(os.path.join(proc, "metadata_phone.csv"), "w", newline="") as f:
+        csv.writer(f).writerows(rows)
+    for name in ("phone_set.json", "word_set.json"):
+        with open(os.path.join(corpus, "processed", name)) as f, open(os.path.join(proc, name), "w") as g:
+            g.write(f.read())
+    # tone sandhi: jieba where it imports, else the overrides these texts
+    # got when the repo's corpus was binarized (its items' pron_modified)
+    hparams = (f"processed_data_dir={proc},binary_data_dir={binary},dict_path={dict_path},"
+               f"with_wav=True,with_f0cwt=True,test_num={VOC_ROWS // 10},valid_num={VOC_ROWS // 10}")
+    try:
+        import jieba  # noqa: F401
+        route = "jieba"
+    except ImportError:
+        overrides = {}
+        for split in CORPUS_SPLITS:
+            ds = IndexedDataset(os.path.join(corpus, "binary", split))
+            for i in range(len(ds)):
+                item = ds[i]
+                overrides[item["txt"]] = [int(v) for v in item["pron_modified"][1:-1]]
+        missing = [r[0] for r in rows if r[2] not in overrides]
+        if missing:
+            raise AssertionError(f"no sandhi overrides for {missing[:5]}")
+        path = os.path.join(root, "sandhi_overrides.json")
+        with open(path, "w", encoding="utf-8") as f:
+            json.dump(overrides, f, ensure_ascii=False)
+        hparams += f",sandhi_overrides={path}"
+        route = "the repo corpus's pron_modified"
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    _, binz = binarize.main(["--config", os.path.join(REPO, RECIPE_CONFIG), "--stage", "binarize",
+                             "--device", "cuda", "--hparams", hparams])
+    total_s = time.perf_counter() - t
+    st = binz.stats
+    if binz.cfg["dict_embed_dim"] != 768 or st["splits"] != {"test": 12, "valid": 12, "train": 96}:
+        raise AssertionError(f"binarized {st['splits']} at dict_embed_dim {binz.cfg['dict_embed_dim']}")
+    items = [ds[i] for split in ("test", "valid", "train")
+             for ds in (IndexedDataset(os.path.join(binary, split)),) for i in range(len(ds))]
+    for item in items:
+        if item["wav"] is None or item["wav"].dtype != np.float32 or not (
+                len(item["wav"]) // HOP + 1 == item["len"] == len(item["mel"]) == len(item["f0"])
+                == len(item["mel2word"]) == len(item["cwt_spec"])):
+            raise AssertionError(f"{item['item_name']}: wav, mel and frames disagree")
+    worst, n_f0 = check_seeded_f0(items, truth)
+    n_words = TokenTextEncoder.from_json(os.path.join(binary, "word_set.json")).vocab_size
+    bank = IndexedDataset(os.path.join(binary, "dict_embed"))
+    if len(bank) != n_words or bank[5]["key"].shape[1] != 768:
+        raise AssertionError(f"dict_embed holds {len(bank)} entries for {n_words} word ids")
+    say(f"binarized {st['items']} items in {total_s:.2f} s ({st['items'] / total_s:.1f} items/s; items "
+        f"{st['items_s']:.2f} s with {st['workers']} text workers, of which the card's mel and f0 "
+        f"{st['features_s']:.2f} s over {st['chunks']} chunks of {binz.cfg.get('binarize_batch', 16)}); "
+        f"bank {len(bank)} entries in {st['bank_s']:.2f} s, {st['bank_bytes'] / 1e6:.1f} MB; splits "
+        f"{st['splits']}; sandhi from {route}; on {smi}")
+    say(f"seeded f0 recovered on {n_f0} voiced frames: max relative error {worst:.3e} (tol {VOC_F0_RTOL})")
+
+    # one chunk of the binarized wavs, and one of glides in VOC_F0_HIGH_HZ,
+    # on the card and on the CPU
+    cpu = ZhBinarizer(binz.cfg, device="cpu")
+    high_rng = np.random.RandomState(SEED + 12)
+    high = [seeded_tone(high_rng, VOC_F0_HIGH_HZ) for _ in range(VOC_CHUNK)]
+    chunks = {f"seeded {VOC_F0_HZ[0]:.0f}-{VOC_F0_HZ[1]:.0f} Hz": [load_wav(r[1])[0] for r in rows[:VOC_CHUNK]],
+              f"glides {VOC_F0_HIGH_HZ[0]:.0f}-{VOC_F0_HIGH_HZ[1]:.0f} Hz": [w for w, _ in high]}
+
+    def stack(wavs):  # the binarizer's bucketed chunk
+        x = torch.zeros((len(wavs), shape_bucket(max(len(w) for w in wavs), multiple=HOP * 128)),
+                        device=binz.device)
+        for i, w in enumerate(wavs):
+            x[i, :len(w)] = torch.as_tensor(w)
+        return x
+
+    card_vs_cpu = {}
+    for name, wavs in chunks.items():
+        got, want = binz._batched_features(wavs, SAMPLE_RATE), cpu._batched_features(wavs, SAMPLE_RATE)
+        mel_err = max(mel_frame_error(g[0], w[0]) for g, w in zip(got, want))
+        # the same f0 with each frame's peak lag and band spread, on both sides
+        x = stack(wavs)
+        sides = [[t.cpu().numpy() for t in autocorr_f0_frames(xs, n_frames=x.shape[1] // HOP + 1)]
+                 for xs in (x, x.cpu())]
+        counts, f0_rel, frames = np.zeros(4, int), 0.0, 0
+        for i, w in enumerate(wavs):
+            n = 1 + len(w) // HOP
+            g, c = ([a[i, :n] for a in side] for side in sides)
+            if not (np.array_equal(g[0], got[i][1]) and np.array_equal(c[0], want[i][1])):
+                raise AssertionError(f"autocorr_f0_frames disagrees with the binarizer's f0 on {name}[{i}]")
+            *cnt, r = f0_disagreement(g, c, 1e-4)
+            counts, f0_rel, frames = counts + cnt, max(f0_rel, r), frames + n
+        vflips, vflips_flat, flat, picks = (int(v) for v in counts)
+        rep = {"mel": mel_err, "f0": f0_rel, "voicing_flips": vflips, "voicing_flips_flat": vflips_flat,
+               "flat_frames": flat, "other_lag_picks": picks, "frames": frames}
+        sub_share = ""
+        if name.startswith("glides"):  # the share of voiced frames the extractor puts off the seeded f0
+            for side, feats in (("card", got), ("cpu", want)):
+                per_item = [seeded_f0_frames(f0, t) for (_, f0), (_, t) in zip(feats, high)]
+                off = sum(int((rel > VOC_F0_RTOL).sum()) for _, _, _, rel in per_item)
+                rep[f"subharmonic_share_{side}"] = off / max(sum(int(v.sum()) for _, _, v, _ in per_item), 1)
+            sub_share = (f"; voiced frames off the seeded f0 by more than {VOC_F0_RTOL:.0%} (subharmonic picks): "
+                         f"card {rep['subharmonic_share_card']:.4f}, CPU {rep['subharmonic_share_cpu']:.4f}")
+        card_vs_cpu[name] = rep
+        say(f"one chunk of {VOC_CHUNK} {name} on the card vs the CPU: mel max |10^a - 10^b| / frame max "
+            f"{mel_err:.3e} (tol 1e-5: f32 FFTs and mel products, TF32 off), f0 voiced max rel {f0_rel:.3e} "
+            f"(tol 1e-4); set apart: voicing flips {vflips} ({vflips_flat} at flat frames), flat frames {flat}, "
+            f"other-lag picks {picks}, of "
+            f"{frames} frames (tol 1 % together){sub_share}")
+        if mel_err > 1e-5 or f0_rel > 1e-4 or vflips + flat + picks > 0.01 * frames:
+            raise AssertionError(f"the card's mel and f0 of the {name} chunk disagree with the CPU's")
+    x = stack(chunks[next(iter(chunks))])
+    mel_ms = time_ms(lambda: batched_log10_mel(x), iters=10)
+    f0_ms = time_ms(lambda: batched_f0(x, n_frames=x.shape[1] // HOP + 1), iters=10)
+    say(f"card ms per chunk [{VOC_CHUNK}, {x.shape[1]}]: mel {mel_ms:.3f}, f0 {f0_ms:.3f}; on {smi}")
+    return binary, {"items": st["items"], "seconds": total_s, "items_per_s": st["items"] / total_s,
+                    "features_s": st["features_s"], "chunks": st["chunks"], "workers": st["workers"],
+                    "bank_s": st["bank_s"], "bank_bytes": st["bank_bytes"], "splits": st["splits"],
+                    "chunk_shape": list(x.shape), "mel_ms": mel_ms, "f0_ms": f0_ms,
+                    "f0_max_rel_err": worst, "card_vs_cpu": card_vs_cpu}
+
+
+def vocoder_training(root, binary, smi):
+    """Phase 11b: run.main with the recipe's HiFi-GAN config (generator 512
+    channels, MPD + MSD, 24 crops of 8192 samples) on 11a's binaries,
+    disc_start_steps 2: 2 steps (D and its optimizer untouched), a resume
+    to 8 (D trained from step 2), a resume to 10, --infer; then step times
+    with the card synchronized, and one step under amp beside one in f32.
+    Returns the report."""
+    from dicttts_tpu_torch import run
+    from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
+
+    hparams = f"binary_data_dir={binary},disc_start_steps=2,val_check_interval=8"
+
+    def main(max_updates, *extra):
+        with in_dir(root):
+            out = run.main(["--config", os.path.join(REPO, VOCODER_CONFIG), "--exp_name", "vocoder",
+                            "--device", "cuda", *extra, "--hparams", f"{hparams},max_updates={max_updates}"])
+            torch.cuda.synchronize()
+        return out
+
+    def finite(trainer):
+        return all(math.isfinite(float(v)) for v in (*trainer.metrics.values(), *trainer.val_metrics.values()))
+
+    torch.cuda.reset_peak_memory_stats()
+    trainer, task = main(2)
+    cfg = task.cfg
+    if (cfg["max_sentences"], cfg["max_samples"], cfg["upsample_initial_channel"]) != (24, 8192, 512):
+        raise AssertionError("not the recipe's HiFi-GAN widths")
+    init = HifiGanTask(cfg, device="cuda")
+    init.build_state(trainer.seed)
+    same = all(torch.equal(a, b) for a, b in zip(init.disc.state_dict().values(), task.disc.state_dict().values()))
+    if not (same and task.opt_d.state_dict()["state"] == {} and task.updates_d == 0 and task.updates_g == 2
+            and finite(trainer)):
+        raise AssertionError("the discriminator or its optimizer moved before disc_start_steps")
+    d2 = {k: v.clone() for k, v in task.disc.state_dict().items()}
+    history = list(trainer.history)
+    del init, task
+    trainer, task = main(8)
+    moved = sum(not torch.equal(d2[k], v) for k, v in task.disc.state_dict().items())
+    opt_d = task.opt_d.state_dict()["state"]
+    if not (task.updates_d == 6 and moved == len(d2) and opt_d and all(int(v["step"]) == 6 for v in opt_d.values())
+            and finite(trainer)):
+        raise AssertionError(f"D after its start: {task.updates_d} updates, {moved} of {len(d2)} tensors moved")
+    history += trainer.history
+    trainer, task = main(10)
+    if trainer.global_step != 10 or task.updates_d != 8 or not finite(trainer):
+        raise AssertionError("the resume to step 10 failed")
+    history += trainer.history
+    peak_train = torch.cuda.max_memory_allocated() / 2**30
+    losses = {k: float(v) for k, v in trainer.metrics.items()}
+    say(f"10 steps over 3 runs (2 D-free, a resume to 8, a resume to 10): last losses "
+        + " ".join(f"{k}={v:.4f}" for k, v in losses.items()) + f"; peak memory {peak_train:.2f} GiB; "
+        f"host wait per batch median {statistics.median(h['wait_ms'] for h in history):.3f} ms, "
+        f"max {max(h['wait_ms'] for h in history):.3f}; on {smi}")
+
+    # step times, the card synchronized around each step (repeats only)
+    batch = task.to_device(next(iter(task.train_batches())))
+
+    def timed(step, n=3):
+        ms = []
+        for _ in range(n + 1):
+            task.step = step
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            task.train_step(batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return ms[1:]
+
+    g_only, gan = timed(0), timed(2)
+
+    def gan_step():
+        task.step = 2
+        task.train_step(batch)
+
+    profiled = profile_step(gan_step, "HiFi-GAN GAN step, 24 x 8192 samples", smi, top=12)
+    torch.cuda.empty_cache()
+    peaks = {}
+    for amp in (False, True):
+        t = HifiGanTask({**cfg, "amp": amp}, device="cuda")
+        t.build_state(trainer.seed)
+        t.load_state_dict(task.state_dict())
+        t.step = 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        m = t.train_step(batch)
+        torch.cuda.synchronize()
+        peaks["amp" if amp else "f32"] = torch.cuda.max_memory_allocated() / 2**30
+        if not all(bool(torch.isfinite(v)) for v in m.values()):
+            raise AssertionError(f"a {'amp' if amp else 'f32'} step is not finite: {m}")
+        del t
+    say(f"step ms at 24 x 8192 samples: G only {' '.join(f'{x:.1f}' for x in g_only)}, GAN "
+        f"{' '.join(f'{x:.1f}' for x in gan)}; one GAN step's peak memory f32 {peaks['f32']:.2f} GiB, "
+        f"amp {peaks['amp']:.2f} GiB; on {smi}")
+    del task
+    trainer, task = main(10, "--infer")
+    outputs = trainer.test(task)
+    shapes = {o["wav_out"].shape for o in outputs}
+    if shapes != {(24, 32 * HOP)} or not all(np.isfinite(o["wav_out"]).all() for o in outputs):
+        raise AssertionError(f"--infer gave wavs of {shapes}, not 24 x T_mel * 256 = 8192")
+    say(f"--infer: {len(outputs)} batches of 24 crops of 32 frames -> wavs {shapes.pop()}, finite, in "
+        f"{trainer.test_seconds * 1e3:.1f} ms")
+    return {"losses": losses, "peak_gib": peak_train, "g_only_ms": g_only, "gan_ms": gan,
+            "wait_ms": [h["wait_ms"] for h in history], "step_peak_gib": peaks,
+            "infer_batches": len(outputs), "profile": profiled}
+
+
+def vocoder_card_vs_cpu(binary, smi):
+    """Phase 11c: one HiFi-GAN step on the card and on the CPU from the same
+    weights and crops, generator width 32, 2 crops of 2048 samples, the
+    discriminator on: every loss and both gradient norms."""
+    from dicttts_tpu_torch.data.datasets import VocoderDataset
+    from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
+
+    cfg = {"upsample_initial_channel": 32, "max_samples": 2048, "disc_start_steps": 0}
+    batch = next(VocoderDataset(binary, "train", cfg, batch_size=2).train_batches())
+    out = {}
+    card = HifiGanTask(cfg, device="cuda")
+    card.build_state(SEED + 12)
+    cpu = HifiGanTask(cfg, device="cpu")
+    cpu.build_state(SEED + 12)
+    cpu.model.load_state_dict(card.model.state_dict())
+    cpu.disc.load_state_dict(card.disc.state_dict())
+    for name, task in (("card", card), ("cpu", cpu)):
+        t = time.perf_counter()
+        out[name] = {k: float(v) for k, v in task.train_step(task.to_device(batch)).items()}
+        say(f"{name}: one step {(time.perf_counter() - t) * 1e3:.1f} ms")
+    rtol, worst = 1e-3, 0.0  # TF32 off; cuDNN and the CPU sum in different orders
+    for k, ref in out["cpu"].items():
+        rel = abs(out["card"][k] - ref) / max(abs(ref), 1e-6)
+        worst = max(worst, rel)
+        say(f"  {k}: card {out['card'][k]:.6f} cpu {ref:.6f} rel {rel:.2e}")
+    say(f"card vs CPU: worst relative difference {worst:.2e} (tol {rtol:.0e}) over {len(out['cpu'])} "
+        f"losses and gradient norms; on {smi}")
+    if set(out["card"]) != set(out["cpu"]) or worst > rtol:
+        raise AssertionError("card and CPU HiFi-GAN steps disagree")
+    return worst
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)  # never outlive the run's limit
     say("phase 0: device")
@@ -1783,6 +2205,25 @@ def main() -> int:
     say(f"phase 10 done at {time.time() - T_START:.1f} s")
     if os.path.exists(root):
         raise AssertionError(f"{root} was not removed")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_vocoder_") as root:
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        say(f"phase 11a: the offline pipeline on the card: {VOC_ROWS} seeded wavs -> binaries with mel, f0 "
+            "and wav (python -m dicttts_tpu_torch.text.binarize, the recipe's config)")
+        binary, binarize_report = binarize_on_card(root, smi)
+        say("phase 11a report " + json.dumps(binarize_report))
+        say(f"phase 11a done at {time.time() - T_START:.1f} s")
+        say(f"phase 11b: HiFi-GAN training at the recipe's width through run.main, {VOCODER_CONFIG}")
+        vocoder_report = vocoder_training(root, binary, smi)
+        say("phase 11b report " + json.dumps(vocoder_report))
+        say("phase 11c: one HiFi-GAN step on the card and on the CPU, same weights and crops")
+        vocoder_report["card_vs_cpu_rel"] = vocoder_card_vs_cpu(binary, smi)
+        torch.cuda.synchronize()
+        recipe_launches["offline_pipeline_and_vocoder"] = launch_counts()
+        if recipe_launches["offline_pipeline_and_vocoder"] != (0, 0, 0):
+            raise AssertionError("phase 11 launched a bank or S2PA kernel")
+    say(f"phase 11 done at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),

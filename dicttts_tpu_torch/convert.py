@@ -16,7 +16,8 @@ the flax tree exactly. Layout rules:
 - Embedding and LayerNorm parameters are unchanged.
 
 The discriminators have no converter in the JAX package;
-``discriminator_state`` and ``jcu_state`` map their flax trees directly.
+``discriminator_state``, ``jcu_state`` and ``hifigan_disc_state`` map
+their flax trees directly.
 The same functions map a gradient tree, which has the parameters' layout.
 """
 
@@ -32,7 +33,7 @@ from dicttts_tpu_torch.models.discriminator import JCUDiscriminator, MultiWindow
 from dicttts_tpu_torch.models.duration import DurationPredictor
 from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.fvae import FVAE
-from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
+from dicttts_tpu_torch.models.hifigan import HifiGanDiscriminator, HifiGanGenerator
 from dicttts_tpu_torch.models.layers import RelTransformerLayers
 from dicttts_tpu_torch.models.wavenet import WN
 
@@ -210,12 +211,32 @@ def jcu_state(params: dict) -> dict:
     return out
 
 
+def hifigan_disc_state(params_d: dict) -> dict:
+    """HiFi-GAN's discriminators: the JAX task's {'mpd': {'disc_p<p>': ...},
+    'msd': {'disc_s<i>': ...}}, each sub-discriminator {'conv_<i>' |
+    'conv_post': {'kernel', 'bias'}} (HWIO 2-D kernels in the MPD, grouped
+    [k, in / groups, out] 1-D kernels in the MSD) -> the port's
+    ``HifiGanDiscriminator.state_dict``."""
+    out: dict = {}
+    for group, subs in params_d.items():
+        for sub, convs in subs.items():
+            for name, leaf in convs.items():
+                kernel = np.asarray(leaf["kernel"])
+                key = f"{group}.discs.{sub}.{name}"
+                out[f"{key}.weight"] = (np.transpose(kernel, (3, 2, 0, 1)) if kernel.ndim == 4
+                                        else _conv(kernel))
+                out[f"{key}.bias"] = leaf["bias"]
+    return out
+
+
 def jax_params_to_state(module: nn.Module, params: dict) -> dict:
     """The port ``state_dict`` (numpy arrays) equivalent to a flax tree."""
     if isinstance(module, DictTTS):
         return dict_tts_state(params, module)
     if isinstance(module, HifiGanGenerator):
         return hifigan_state(params, module)
+    if isinstance(module, HifiGanDiscriminator):
+        return hifigan_disc_state(params)
     if isinstance(module, MultiWindowDiscriminator):
         return discriminator_state(params)
     if isinstance(module, JCUDiscriminator):

@@ -21,8 +21,9 @@ the provider asks to prefetch the next batch's records):
   frame cache) and ``mel2word`` as int16. Gathered banks are padded to the
   gloss bucket (32, or ``gloss_buckets``) and the pinyin bucket (8, or
   ``pinyin_buckets``).
-
-Not ported: ``VocoderDataset`` (ROADMAP Queue 1).
+- ``VocoderDataset`` gives HiFi-GAN's batches of wav crops and their mel
+  windows, with the JAX package's ``np.random.RandomState`` streams, so its
+  batches are the JAX package's too.
 """
 
 from __future__ import annotations
@@ -379,3 +380,63 @@ class TTSBatchProvider:
 
     def test_batches(self):
         return self._iter()
+
+
+class VocoderDataset:
+    """Batches of ``batch_size`` random crops: ``max_samples`` wav samples
+    and their ``max_samples // hop`` mel frames, from binaries written
+    ``with_wav`` (upstream tasks/vocoder/dataset_utils.py:49-177).
+
+    Training batches shuffle and crop from one RandomState(seed) that
+    advances across epochs; validation and test batches go in order, each
+    item cropped at an offset fixed by RandomState(seed + 7919 * (j + 1)),
+    so two validations of one model agree. Clips shorter than the window
+    are right-padded with zeros. A last partial batch is dropped."""
+
+    def __init__(self, data_dir: str, prefix: str, cfg: dict, batch_size: int = 24, seed: int = 1234):
+        self.ds = IndexedDataset(os.path.join(data_dir, prefix))
+        self.cfg = cfg
+        self.batch_size = batch_size
+        self.hop = cfg.get("hop_size", 256)
+        self.max_samples = cfg.get("max_samples", 8192)
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+
+    def _crop(self, item, rng) -> tuple[np.ndarray, np.ndarray]:
+        if item.get("wav") is None:
+            raise ValueError(f"item {item.get('item_name')!r} carries no wav: binarize the corpus with "
+                             "with_wav=true")
+        wav = np.asarray(item["wav"], np.float32)
+        mel = np.asarray(item["mel"], np.float32)
+        mel_win = self.max_samples // self.hop
+        start = rng.randint(0, mel.shape[0] - mel_win) if mel.shape[0] > mel_win else 0
+        mel_c = mel[start:start + mel_win]
+        wav_c = wav[start * self.hop:(start + mel_win) * self.hop]
+        if mel_c.shape[0] < mel_win:
+            mel_c = np.pad(mel_c, ((0, mel_win - mel_c.shape[0]), (0, 0)))
+            wav_c = np.pad(wav_c, (0, self.max_samples - len(wav_c)))
+        return wav_c, mel_c
+
+    def _batches(self, deterministic: bool = False):
+        if deterministic:
+            order = np.arange(len(self.ds))
+
+            def rng_for(j):
+                return np.random.RandomState(self.seed + 7919 * (int(j) + 1))
+        else:
+            order = self.rng.permutation(len(self.ds))
+
+            def rng_for(j):
+                return self.rng
+        for i in range(0, len(order) - self.batch_size + 1, self.batch_size):
+            wavs, mels = zip(*[self._crop(self.ds[j], rng_for(j)) for j in order[i:i + self.batch_size]])
+            yield {"wavs": np.stack(wavs), "mels": np.stack(mels)}
+
+    def train_batches(self):
+        return self._batches()
+
+    def val_batches(self):
+        return self._batches(deterministic=True)
+
+    def test_batches(self):
+        return self._batches(deterministic=True)

@@ -15,7 +15,7 @@ kernel K3 once per batch; the recipe leaves it off (eager S2PA).
 
 The card is the default device; without one the constructor raises
 unless ``device="cpu"`` is given. Tone sandhi needs jieba; where it is not
-installed, pass ``sandhi=FixedSandhi(overrides)`` with the overrides that
+installed, pass ``sandhi=text.sandhi.FixedSandhi(overrides)`` with the overrides that
 ``SandhiProcessor.process_sandhi`` gave for each normalized text.
 """
 
@@ -42,19 +42,6 @@ from dicttts_tpu_torch.utils.indexed_dataset import IndexedDataset
 from dicttts_tpu_torch.utils.text_encoder import TokenTextEncoder
 from dicttts_tpu_torch.vocoders import get_vocoder_cls
 from dicttts_tpu_torch.vocoders.hifigan import save_wav
-
-
-class FixedSandhi:
-    """Sandhi overrides computed ahead of time, for a machine without jieba:
-    {normalized text: process_sandhi's list}. A text it does not hold raises."""
-
-    def __init__(self, overrides: dict[str, list[int]]):
-        self.overrides = overrides
-
-    def process_sandhi(self, text: str, words=None) -> list[int]:
-        if text not in self.overrides:
-            raise KeyError(f"no precomputed sandhi overrides for {text!r}")
-        return list(self.overrides[text])
 
 
 class DictTTSInferencer:

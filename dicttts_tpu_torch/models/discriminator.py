@@ -13,6 +13,11 @@ computed on the device, so drawing them makes no host round trip. Windows longer
 the batch's longest sequence are masked by the returned ``win_valid``, as
 in the JAX module.
 
+Under amp the convolutions run in bf16 and the head of each window, and
+all of ``JCUDiscriminator``, in f32 with autocast off
+(``ops/amp.f32_island``), as the JAX modules give only the window convs a
+compute dtype.
+
 Convolutions run NCHW; the last feature map is flattened in the JAX
 module's NHWC order, so the head's weight is the flax kernel transposed.
 Parameter names mirror the flax tree (``win_32.conv_0``, ``win_32.in_gamma_1``,
@@ -28,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dicttts_tpu_torch.models.layers import dropout
+from dicttts_tpu_torch.ops.amp import f32_island
 
 
 def instance_norm_2d(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -71,7 +77,8 @@ class Disc2DBlockStack(nn.Module):
             if i > 0 and self.norm:
                 h = instance_norm_2d(h, getattr(self, f"in_gamma_{i}"), getattr(self, f"in_beta_{i}"))
             feats.append(h.permute(0, 2, 3, 1))
-        return self.adv(feats[-1].reshape(h.shape[0], -1)), feats
+        with f32_island(h.device.type):
+            return self.adv(feats[-1].reshape(h.shape[0], -1).float()), feats
 
 
 class MultiWindowDiscriminator(nn.Module):
@@ -153,10 +160,11 @@ class JCUDiscriminator(nn.Module):
         def act(h):
             return F.leaky_relu(h, 0.2)
 
-        c = act(refl_stride2(cond.transpose(1, 2), self.cond_conv))
-        h = act(refl_stride2(x.transpose(1, 2), self.x_conv_0))
-        h = act(self.x_conv_1(h))
-        h = act(self.x_conv_2(h))
-        yc = self.cond_head_1(act(self.cond_head_0(torch.cat([c, h], dim=1))))
-        yu = self.x_head_1(act(self.x_head_0(h)))
+        with f32_island(x.device.type):
+            c = act(refl_stride2(cond.float().transpose(1, 2), self.cond_conv))
+            h = act(refl_stride2(x.float().transpose(1, 2), self.x_conv_0))
+            h = act(self.x_conv_1(h))
+            h = act(self.x_conv_2(h))
+            yc = self.cond_head_1(act(self.cond_head_0(torch.cat([c, h], dim=1))))
+            yu = self.x_head_1(act(self.x_head_0(h)))
         return {"y_c": yu.transpose(1, 2), "y": yc.transpose(1, 2)}

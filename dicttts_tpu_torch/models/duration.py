@@ -4,6 +4,9 @@ Port of ``dicttts_tpu/models/duration.py`` with the PortaSpeech Softplus
 head. Parameter names follow the reference's per-layer ``Sequential``
 (``conv.{i}.1`` is the conv, ``conv.{i}.3`` the LayerNorm) and its
 ``linear.0`` head, which ``convert_duration_predictor`` reads.
+
+Under amp it runs in f32 with autocast off (``ops/amp.f32_island``): the
+JAX module has no compute dtype, so its layers promote to f32.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from dicttts_tpu_torch.models.layers import conv1d_tc, dropout
+from dicttts_tpu_torch.ops.amp import f32_island
 
 
 class DurationPredictor(nn.Module):
@@ -41,11 +45,13 @@ class DurationPredictor(nn.Module):
 
     def forward(self, x: torch.Tensor, nonpadding: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
-        for layer in self.conv:
-            x = torch.relu(conv1d_tc(x, layer[1]))
-            x = dropout(layer[3](x), self.dropout_rate, self.training, generator)
-            x = x * nonpadding[:, :, None]
-        return F.softplus(self.linear(x)[..., 0]) * nonpadding
+        x, nonpadding = x.float(), nonpadding.float()
+        with f32_island(x.device.type):
+            for layer in self.conv:
+                x = torch.relu(conv1d_tc(x, layer[1]))
+                x = dropout(layer[3](x), self.dropout_rate, self.training, generator)
+                x = x * nonpadding[:, :, None]
+            return F.softplus(self.linear(x)[..., 0]) * nonpadding
 
 
 def out2dur(log_dur: torch.Tensor, offset: float = 1.0) -> torch.Tensor:

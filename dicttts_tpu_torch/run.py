@@ -1,9 +1,11 @@
 """Command-line entry: train a task from its config, or run its test split.
 
 Port of ``dicttts_tpu/run.py``: resolve the config chain, derive the
-vocabulary sizes from the binarized corpus, build the data provider, the
-task named by ``task_cls`` and the trainer, then train, or with ``--infer``
-write ``<work_dir>/generated/`` and its ``meta.csv``.
+vocabulary sizes from the binarized corpus, build the data provider (the
+three splits' batches, or HiFi-GAN's ``VocoderDataset`` crops), the task
+named by ``task_cls`` (``DictTTSTask`` or ``HifiGanTask``) and the trainer,
+then train, or with ``--infer`` run the test loop (Dict-TTS writes
+``<work_dir>/generated/`` and its ``meta.csv``).
 
     python -m dicttts_tpu_torch.run \\
         --config dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml \\
@@ -24,7 +26,7 @@ import os
 import pickle
 
 from dicttts_tpu_torch.config import load_config
-from dicttts_tpu_torch.data.datasets import TTSBatchProvider, TTSBinaryDataset
+from dicttts_tpu_torch.data.datasets import TTSBatchProvider, TTSBinaryDataset, VocoderDataset
 from dicttts_tpu_torch.train.trainer import Trainer
 
 PACKAGE = "dicttts_tpu_torch."
@@ -77,7 +79,10 @@ class _Splits:
         return self.test.test_batches()
 
 
-def build_data_provider(cfg: dict) -> _Splits:
+def build_data_provider(cfg: dict):
+    """The task's batches: ``VocoderDataset`` crops of the train split for
+    HiFi-GAN (its train, validation and test batches alike, as in the JAX
+    package), else the three splits' providers."""
     data_dir = cfg.get("binary_data_dir", "")
     # a split is .data/.idx or .rio/.rix (the JAX package requires train.idx
     # even where train.rio exists)
@@ -85,7 +90,10 @@ def build_data_provider(cfg: dict) -> _Splits:
                                for ext in (".idx", ".rio")):
         raise FileNotFoundError(
             f"binary_data_dir {data_dir!r} has no binaries; binarize the corpus first "
-            "(python -m dicttts_tpu.text.binarize --config ...)")
+            "(python -m dicttts_tpu_torch.text.binarize --config ...)")
+    if "hifigan" in cfg.get("task_cls", "").lower():
+        return VocoderDataset(data_dir, cfg.get("train_set_name", "train"), cfg,
+                              batch_size=cfg.get("max_sentences", 24))
     kind = "dict" if cfg.get("use_dict") else ("word" if cfg.get("dur_level") == "word" else "fs")
     return _Splits(cfg, data_dir, kind)
 
@@ -96,7 +104,8 @@ def task_class(task_path: str):
     if not task_path.startswith(PACKAGE):
         raise NotImplementedError(
             f"task {task_path} is not ported to {PACKAGE[:-1]} yet (ROADMAP Queue 1); the port "
-            "trains dicttts_tpu_torch.train.tasks.dict_tts.DictTTSTask")
+            "trains dicttts_tpu_torch.train.tasks.dict_tts.DictTTSTask and "
+            "dicttts_tpu_torch.train.tasks.hifigan.HifiGanTask")
     mod, cls_name = task_path.rsplit(".", 1)
     return getattr(importlib.import_module(mod), cls_name)
 

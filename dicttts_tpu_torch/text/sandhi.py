@@ -28,7 +28,7 @@ character cursor, which upstream forgets to do (:458-460).
 Segmentation needs jieba. Without it ``process_sandhi`` raises an
 ``ImportError`` that names jieba: the overrides are never skipped silently.
 A caller on a machine without jieba passes precomputed overrides instead
-(``dicttts_tpu_torch.infer.FixedSandhi``).
+(``FixedSandhi``).
 """
 
 from __future__ import annotations
@@ -399,3 +399,16 @@ class SandhiProcessor:
                         out[cursor + j] = v
             cursor += len(word)
         return out
+
+
+class FixedSandhi:
+    """Sandhi overrides computed ahead of time, for a machine without jieba:
+    {normalized text: process_sandhi's list}. A text it does not hold raises."""
+
+    def __init__(self, overrides: dict[str, list[int]]):
+        self.overrides = overrides
+
+    def process_sandhi(self, text: str, words=None) -> list[int]:
+        if text not in self.overrides:
+            raise KeyError(f"no precomputed sandhi overrides for {text!r}")
+        return list(self.overrides[text])

@@ -129,6 +129,15 @@ def lsgan_d_loss(real_out: torch.Tensor, fake_out: torch.Tensor) -> torch.Tensor
     return torch.mean(torch.square(real_out - 1.0)) + torch.mean(torch.square(fake_out))
 
 
+def feature_matching_loss(fmaps_real, fmaps_fake) -> torch.Tensor:
+    """HiFi-GAN's feature loss: 2 x the sum over the feature maps (nested
+    lists, flattened in order) of mean |real - fake|."""
+    def flat(x):
+        return [t for item in x for t in flat(item)] if isinstance(x, (list, tuple)) else [x]
+
+    return 2.0 * sum(torch.mean(torch.abs(r - f)) for r, f in zip(flat(fmaps_real), flat(fmaps_fake)))
+
+
 def clamp_kl(kl: torch.Tensor, floor: float = 0.002) -> torch.Tensor:
     """KL floor: below it the term is constant and passes no gradient."""
     return torch.clamp(kl, min=floor)

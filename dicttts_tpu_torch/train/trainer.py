@@ -26,9 +26,11 @@ validation artifacts and the TensorBoard writer.
 
 Each train step appends a record to ``history``: the step, its sentences
 and mel frames (the batch's shape), the milliseconds the loop waited for
-the batch, and the step's milliseconds on the host clock. A step waits for
-the card once, at the NaN check of the generator loss before its optimizer
-updates, so its time holds the previous step's updates and not its own.
+the batch, and the step's milliseconds on the host clock. A ``DictTTSTask``
+step waits for the card once, at the NaN check of the generator loss
+before its optimizer updates, so its time holds the previous step's
+updates and not its own; a ``HifiGanTask`` step never waits, so its time
+is the host's until the card's queue fills.
 
     trainer = Trainer(work_dir, max_updates=1000)          # device="cuda"
     trainer.fit(task)
@@ -56,6 +58,16 @@ log = logging.getLogger("dicttts_tpu_torch.trainer")
 def _host(batch: dict) -> dict:
     """A batch without its host-only ``_meta``."""
     return {k: v for k, v in batch.items() if k != "_meta"}
+
+
+def batch_rows(batch: dict) -> int:
+    """A batch's sentences (or crops): its arrays' leading dimension."""
+    return int(np.shape(next(v for k, v in batch.items() if k != "_meta"))[0])
+
+
+def batch_frames(batch: dict) -> int:
+    """A batch's mel frames: mel2word's width (TTS batches), else the mels'."""
+    return int(np.shape(batch["mel2word"] if "mel2word" in batch else batch["mels"])[1])
 
 
 class Trainer:
@@ -102,7 +114,7 @@ class Trainer:
 
     def fit(self, task, train_batches: Iterable[dict] | None = None,
             val_batches: Iterable[dict] | None = None) -> None:
-        """Train ``task`` (a ``DictTTSTask`` on this trainer's device) to
+        """Train ``task`` (a ``DictTTSTask`` or ``HifiGanTask`` on this trainer's device) to
         ``max_updates``, resuming from the newest checkpoint in work_dir.
         The batches are the task's (``task.train_batches()``, read again
         each epoch, and ``task.val_batches()``), or the iterables given
@@ -133,8 +145,8 @@ class Trainer:
                                                    self.step_generator(self.global_step))
                     self.global_step += 1
                     self.history.append({
-                        "step": self.global_step, "sentences": int(np.shape(batch["word_tokens"])[0]),
-                        "frames": int(np.shape(batch["mel2word"])[1]), "wait_ms": (t1 - t0) * 1e3,
+                        "step": self.global_step, "sentences": batch_rows(batch),
+                        "frames": batch_frames(batch), "wait_ms": (t1 - t0) * 1e3,
                         "step_ms": (time.perf_counter() - t1) * 1e3})
                     if self.global_step % self.log_interval == 0:
                         log.info("step %d | %s", self.global_step,
@@ -160,7 +172,7 @@ class Trainer:
                 break
             batch = task.to_device(_host(batch))
             gen = torch.Generator(device=self.device).manual_seed(self.seed + i)
-            results.append((task.val_step(batch, gen), batch["word_tokens"].shape[0]))
+            results.append((task.val_step(batch, gen), batch_rows(batch)))
         sums: dict = {}
         count = 0
         for metrics, n in results:  # one host read per value, after every batch is queued

@@ -8,13 +8,19 @@ optax ``MultiSteps``, which the JAX task wraps around both optimizers.
 - Through the tasks: 4 micro-steps of the JAX task and of the port on the
   same weights and batches (gathered banks, dropout 0, noise and crop
   starts pinned), with ``disc_start_steps`` 1 inside the window, so the
-  two accumulators fall out of phase. After micro-steps 2 and 4 the
-  params agree at atol 1e-6 (the discriminator's lr is set to 1e-6, the
-  size of the generator's first steps under the recipe's warmup: Adam's
-  normalised step turns a gradient element that the two packages agree on
-  only to the gradient tolerance's atol into a param difference of up to
-  the lr; at the recipe's 1e-4 one element of the discriminator's differs
-  by 2.2e-6); after every micro-step the update counts and
+  two accumulators fall out of phase, and the recipe's discriminator lr
+  (1e-4). After micro-steps 2 and 4 the params agree at atol 1e-6 plus,
+  per element, what a gradient difference at the gradient tolerance can
+  move one Adam step: lr * tol_g / (sqrt(v_hat) + eps), at most 2 lr
+  (``_adam_atol``). That term is ~1e-7 for an element whose gradient is
+  well above the tolerance and reaches the lr only where the gradient is
+  at round-off: the conv biases of the discriminator's instance-normed
+  blocks (``win_*.conv_1/2.bias``), whose gradients the norm all but
+  cancels (|g| ~ 1e-9 against 1e-2 in the rest of the tensor; the two
+  packages disagree even on their sign) and which Adam's first step
+  turns into a step of up to the lr (measured: 1.1e-6 to 1.1e-5 at lr
+  1e-4, one element each of four biases; every other element within
+  1e-6); after every micro-step the update counts and
   the micro-step counts are equal, the accumulated gradient means agree
   at the gradient tolerance of tests/test_torch_train_task.py (rtol 1e-3,
   atol 1e-6 of the largest), and so do Adam's first moments; a micro-step
@@ -84,16 +90,30 @@ def _tree(module, flax_tree):
     return jax_params_to_state(module, jax.device_get(flax_tree))
 
 
-def _assert_grads_close(module, got: list, want: dict, what):
+def _assert_grads_close(module, got: list, want: dict, what) -> float:
+    """The gradient tolerance (rtol 1e-3, atol 1e-6 of the largest element);
+    returns that largest element."""
     names = [n for n, _ in module.named_parameters()]
     top = max(np.abs(np.asarray(v)).max() for v in want.values())
     for n, g in zip(names, got):
         np.testing.assert_allclose(g.numpy(), np.asarray(want[n]), rtol=1e-3, atol=1e-6 * top,
                                    err_msg=f"{what} {n}")
+    return float(top)
+
+
+def _adam_atol(opt, p, top: float) -> np.ndarray:
+    """Per element of ``p``: 1e-6, plus the most that a gradient difference
+    at the gradient tolerance (1e-3 |g| + 1e-6 top, |g| read as sqrt(v_hat))
+    moves the last Adam step of lr: lr * tol_g / (sqrt(v_hat) + eps), at
+    most 2 lr (a step is at most lr either way)."""
+    st, group = opt.state[p], opt.param_groups[0]
+    lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+    g = (st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt().numpy()
+    return 1e-6 + np.minimum(lr * (1e-3 * g + 1e-6 * top) / (g + eps), 2 * lr)
 
 
 def test_accumulation_through_the_task_matches_the_jax_task(monkeypatch):
-    cfg = dict(T.CFG, accumulate_grad_batches=K, disc_start_steps=1, disc_lr=1e-6)
+    cfg = dict(T.CFG, accumulate_grad_batches=K, disc_start_steps=1, disc_lr=1e-4)
     jt = JTask(dict(cfg), None)
     state = jt.build_state(jax.random.PRNGKey(0))
     params_g = T._randomize(state["params_g"], 2, 0.2)
@@ -115,7 +135,7 @@ def test_accumulation_through_the_task_matches_the_jax_task(monkeypatch):
     task.build_state(0)
     load_jax_params(task.model, params_g)
     load_jax_params(task.disc, params_d)
-    counts = []
+    counts, top = [], {"g": 0.0, "d": 0.0}
     for i, batch in enumerate(batches):
         gathered = dict(batch, keys=bank["keys"][batch["word_tokens"]],
                         values=bank["keys"][batch["word_tokens"]],
@@ -130,8 +150,9 @@ def test_accumulation_through_the_task_matches_the_jax_task(monkeypatch):
             js = state[f"opt_{name}"]
             assert getattr(task, f"updates_{name}") == int(js.gradient_step), (name, i)
             assert task.acc[name]["n"] == int(js.mini_step), (name, i)
-            _assert_grads_close(module, task.acc[name]["grads"], _tree(module, js.acc_grads),
-                                f"acc_{name} after micro-step {i + 1}")
+            top[name] = max(top[name], _assert_grads_close(
+                module, task.acc[name]["grads"], _tree(module, js.acc_grads),
+                f"acc_{name} after micro-step {i + 1}"))
             adam = js.inner_opt_state[1][0]
             if int(js.gradient_step):
                 _assert_grads_close(module, [opt.state[p]["exp_avg"] for p in module.parameters()],
@@ -140,11 +161,12 @@ def test_accumulation_through_the_task_matches_the_jax_task(monkeypatch):
         if task.acc["g"]["n"]:  # mid-accumulation: nothing moved
             assert all(torch.equal(before[n], p) for n, p in task.model.named_parameters())
         if i % 2:
-            for module, flax_tree in ((task.model, state["params_g"]), (task.disc, state["params_d"])):
-                want = _tree(module, flax_tree)
+            for name, module, opt in (("g", task.model, task.opt_g), ("d", task.disc, task.opt_d)):
+                want = _tree(module, state[f"params_{name}"])
                 for n, p in module.named_parameters():
-                    np.testing.assert_allclose(p.detach().numpy(), np.asarray(want[n]), rtol=0, atol=1e-6,
-                                               err_msg=f"{n} after micro-step {i + 1}")
+                    err = np.abs(p.detach().numpy() - np.asarray(want[n]))
+                    atol = _adam_atol(opt, p, top[name]) if p in opt.state else 1e-6
+                    assert (err <= atol).all(), (n, i + 1, err.max(), err[err > atol])
     # the generator updates at micro-steps 2 and 4, the discriminator (on
     # from micro-step 2) at 3; its accumulator holds micro-step 4
     assert counts == [(0, 0, 1, 0), (1, 0, 0, 1), (1, 1, 1, 0), (2, 1, 0, 1)]

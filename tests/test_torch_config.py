@@ -1,7 +1,7 @@
 """Port parity of the config tree (dicttts_tpu_torch.config and
 dicttts_tpu_torch/configs/) against dicttts_tpu.config and its YAML files:
 the recipe resolves to the same dict key for key (task_cls apart, which
-names the port's task), override strings coerce alike, the saved
+names the port's task; the HiFi-GAN configs too), override strings coerce alike, the saved
 config.yaml is read back as the JAX package reads it, and run.py names
 the tasks the port lacks."""
 
@@ -14,11 +14,23 @@ from dicttts_tpu import config as jconfig
 from dicttts_tpu_torch import config as tconfig
 from dicttts_tpu_torch.run import task_class
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FILES = ["base.yaml", "tts/base.yaml", "tts/ps_flow.yaml", "tts/ps_adv.yaml", "tts/dict_tts.yaml",
-         "datasets/biaobei/dict_tts.yaml"]
+         "datasets/biaobei/dict_tts.yaml", "tts/hifigan.yaml", "datasets/biaobei/hifigan.yaml",
+         "datasets/wenetspeech/hifigan.yaml"]
 PORT_TASK = "dicttts_tpu_torch.train.tasks.dict_tts.DictTTSTask"
+PORT_VOCODER_TASK = "dicttts_tpu_torch.train.tasks.hifigan.HifiGanTask"
+
+
+def _port_task(name):
+    """The task_cls a port config names in place of the JAX task, or None."""
+    if name.endswith("dict_tts.yaml"):
+        return PORT_TASK
+    if name.endswith("hifigan.yaml"):
+        return PORT_VOCODER_TASK
+    return None
 
 
 def _pair(name):
@@ -33,8 +45,8 @@ def test_config_tree_resolves_as_the_jax_tree(name):
     got = tconfig.load_config(port_path, save=False)
     assert set(got) == set(want)
     for key in want:
-        if key == "task_cls" and name.endswith("dict_tts.yaml"):
-            assert got[key] == PORT_TASK
+        if key == "task_cls" and _port_task(name):
+            assert got[key] == _port_task(name)
         else:
             assert got[key] == want[key], key
             assert type(got[key]) is type(want[key]), key
@@ -47,8 +59,8 @@ def test_each_port_file_holds_the_jax_values(name):
         want = yaml.safe_load(f)
     with open(port_path) as f:
         got = yaml.safe_load(f)
-    if "task_cls" in want and name.endswith("dict_tts.yaml"):
-        want["task_cls"] = PORT_TASK
+    if "task_cls" in want and _port_task(name):
+        want["task_cls"] = _port_task(name)
     assert got == want
 
 
@@ -105,6 +117,8 @@ def test_run_names_the_tasks_not_ported(name):
     task_cls = tconfig.load_config(_pair(name)[1], save=False)["task_cls"]
     if name.endswith("dict_tts.yaml"):
         assert task_class(task_cls) is DictTTSTask
+    elif name.endswith("hifigan.yaml"):
+        assert task_class(task_cls) is HifiGanTask
     else:
         with pytest.raises(NotImplementedError, match=task_cls.replace(".", r"\.")):
             task_class(task_cls)

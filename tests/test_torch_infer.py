@@ -43,6 +43,7 @@ from dicttts_tpu_torch.data.collate import shape_bucket
 from dicttts_tpu_torch.eval.metrics import Timer
 from dicttts_tpu_torch.ops import mel as tmel
 from dicttts_tpu_torch.ops import pcm as tpcm
+from dicttts_tpu_torch.text.sandhi import FixedSandhi
 from dicttts_tpu_torch.vocoders import HifiGanVocoder, get_vocoder_cls
 from dicttts_tpu_torch.vocoders.hifigan import load_wav
 
@@ -182,7 +183,7 @@ def test_fixed_sandhi_replaces_the_jieba_engine(world):
     t = world["port"]
     norm = t.g2p.preprocess(TEXTS[1])
     want = t._prepare(TEXTS[1])
-    fixed = tinfer.FixedSandhi({norm: t.sandhi.process_sandhi(norm, None)})
+    fixed = FixedSandhi({norm: t.sandhi.process_sandhi(norm, None)})
     engine, t.sandhi = t.sandhi, fixed
     try:
         _assert_same(t._prepare(TEXTS[1]), want)
