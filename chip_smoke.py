@@ -111,12 +111,28 @@ Phases, each announced on its own line:
     HiFi-GAN step on the card and on the CPU from the same weights and
     crops at width 32: every loss and both gradient norms.
 
+12. the PortaSpeech recipes, which launch none of the three kernels, on
+    the repo's splits (or the synthetic corpus): (a) run.main with
+    configs/datasets/biaobei/ps_adv.yaml at the recipe's widths (hidden
+    192, 4 + 4 encoder layers, FVAE 8/4, prior flow 4 blocks, the mel
+    discriminator; token-budget batches of 20000 frames) for 16 steps with
+    validations and checkpoints, a resume for 2 more, --infer over the test
+    split: step ms by batch shape, host wait, peak memory, ms per test
+    utterance; (b) ps_flow.yaml with use_post_glow (12 blocks of 3 WN layers
+    at 192, 3 shared WN stacks) and post_glow_training_start cut from 160000
+    to 4: 3 steps, a resume to 8 across the switch, the frozen part of each
+    stage checked untouched through the checkpoints, --infer with the
+    Glow's sample (finite mels, not all equal); (c) one ps_adv step and one
+    post-glow stage-2 step on the card and on the CPU from the same
+    weights, batch, noise and crops at B=2 and small widths: every loss and
+    gradient norm within 2e-3.
+
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b, 8, 9, 10 and 11 remove.
+temporary directories that phases 7b, 8, 9, 10, 11 and 12 remove.
 """
 
 from __future__ import annotations
@@ -164,6 +180,17 @@ RECIPE_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml"
 RECIPE_STEPS, RESUME_STEPS = 16, 2  # two epochs of the train split's 8 batches
 CORPUS_SPLITS = {"train": 324, "valid": 18, "test": 18}  # the repo's corpus, .prod_corpus/binary
 CORPUS_FILES = ("word_set.json", "phone_set.json", "pinyin_encoder.pkl", "spk_map.json")
+# phase 12: the PortaSpeech recipes on the corpus (post_glow_training_start
+# cut from 160000 to PS_FLOW_SWITCH), and one step of each on card and CPU
+PS_ADV_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/ps_adv.yaml"
+PS_FLOW_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/ps_flow.yaml"
+PS_STEPS, PS_RESUME = 16, 2
+PS_FLOW_STOP, PS_FLOW_SWITCH, PS_FLOW_STEPS = 3, 4, 8
+PS_CHECK_CFG = dict(n_vocab=64, hidden_size=32, enc_layers=2, word_enc_layers=2, dropout=0.0,
+                    predictor_dropout=0.0, disc_dropout=0.0, fvae_enc_dec_hidden=32, latent_size=4,
+                    fvae_enc_n_layers=2, fvae_dec_n_layers=2, prior_glow_hidden=16,
+                    mel_disc_hidden_size=16, post_glow_hidden=32, post_glow_n_blocks=4,
+                    post_glow_n_block_layers=2, share_wn_layers=2)
 # phase 11: the offline pipeline and HiFi-GAN training
 VOCODER_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/hifigan.yaml"
 VOC_ROWS = 120  # 12 test, 12 valid and 96 train rows: 4 batches of the recipe's 24 crops
@@ -892,18 +919,22 @@ def standin_bank(binary, rng):
     return lens
 
 
-def prepare_corpus(binary, rng):
-    """Link the repo's splits into ``binary`` (or write a synthetic corpus),
-    then write the stand-in bank. Returns "repo" or "synthetic"."""
+def link_corpus(binary, rng):
+    """Link the repo's splits into ``binary``, or write a synthetic corpus
+    where the checkout has none. Returns "repo" or "synthetic"."""
     src = os.path.join(REPO, ".prod_corpus", "binary")
     if os.path.exists(os.path.join(src, "train.idx")):
         for name in (*CORPUS_FILES, *(f"{s}{ext}" for s in CORPUS_SPLITS
                                       for ext in (".data", ".idx", "_lengths.npy"))):
             os.symlink(os.path.join(src, name), os.path.join(binary, name))
-        corpus = "repo"
-    else:
-        synthetic_corpus(binary, rng)
-        corpus = "synthetic"
+        return "repo"
+    synthetic_corpus(binary, rng)
+    return "synthetic"
+
+
+def prepare_corpus(binary, rng):
+    """``link_corpus``, then the stand-in bank. Returns "repo" or "synthetic"."""
+    corpus = link_corpus(binary, rng)
     lens = standin_bank(binary, rng)
     where = ("the repo's .prod_corpus/binary splits" if corpus == "repo"
              else "written from the seed: the checkout has no .prod_corpus/binary")
@@ -1347,15 +1378,16 @@ def zero_launch_counts():
     s2pa_bank_fwd.launches = s2pa_bank_bwd.launches = s2pa_fused.launches = 0
 
 
-def run_main(root, exp_name, hparams, *extra):
-    """run.main on the recipe's config in ``root``, the launch counts set to
-    0 just before and read just after. Returns (trainer, task, (K1, K2, K3))."""
+def run_main(root, exp_name, hparams, *extra, config=RECIPE_CONFIG):
+    """run.main on ``config`` (the recipe's) in ``root``, the launch counts
+    set to 0 just before and read just after. Returns (trainer, task, (K1,
+    K2, K3))."""
     from dicttts_tpu_torch import run
 
     with in_dir(root):
         torch.cuda.synchronize()
         zero_launch_counts()
-        out = run.main(["--config", os.path.join(REPO, RECIPE_CONFIG), "--exp_name", exp_name,
+        out = run.main(["--config", os.path.join(REPO, config), "--exp_name", exp_name,
                         "--device", "cuda", *extra, *(["--hparams", hparams] if hparams else [])])
         torch.cuda.synchronize()
     return (*out, launch_counts())
@@ -2015,6 +2047,197 @@ def vocoder_card_vs_cpu(binary, smi):
     return worst
 
 
+def ps_batch(rng, B, T_ph, Tw, T):
+    """A word batch in the collater's format: BOS, words of 1-3 phones and
+    8-20 frames, mels zero past each row's length, phones and words
+    padded; the last row 3/4 of the others' length."""
+    lengths = [T] * (B - 1) + [3 * T // 4]
+    ph2word = np.zeros((B, T_ph), np.int32)
+    m2w = np.zeros((B, T), np.int32)
+    wl = np.zeros(B, np.int32)
+    for b, n_frames in enumerate(lengths):
+        f = w = p = 0
+        while f < n_frames and w < Tw and p < T_ph:
+            n_ph = min(rng.randint(1, 4), T_ph - p)
+            d = min(rng.randint(8, 21), n_frames - f)
+            ph2word[b, p:p + n_ph], m2w[b, f:f + d] = w + 1, w + 1
+            f, w, p = f + d, w + 1, p + n_ph
+        wl[b] = w
+    return {"txt_tokens": np.where(ph2word > 0, rng.randint(3, 60, ph2word.shape), 0).astype(np.int32),
+            "ph2word": ph2word, "mel2word": m2w,
+            "word_tokens": np.where(np.arange(Tw)[None] < wl[:, None], 5, 0).astype(np.int32),
+            "mels": (rng.randn(B, T, 80) * 0.8 - 4.5).astype(np.float32) * (m2w > 0)[:, :, None],
+            "word_lengths": wl, "mel_lengths": np.array(lengths, np.int32)}
+
+
+def ps_widths(task) -> str:
+    c, m = task.cfg, task.model
+    glow = m.post_flow
+    return (f"hidden {c['hidden_size']}, phone encoder {c['enc_layers']} + word encoder "
+            f"{c['word_enc_layers']} layers, FVAE {c['fvae_enc_n_layers']}/{c['fvae_dec_n_layers']} "
+            f"at {c['fvae_enc_dec_hidden']}, prior flow {c['prior_glow_n_blocks']} blocks, n_vocab "
+            f"{c['n_vocab']}, max_tokens {c['max_tokens']}, "
+            + (f"post-glow {len(glow.coupling)} blocks of {c['post_glow_n_block_layers']} layers at "
+               f"{c['post_glow_hidden']} ({len(glow.shared_wn)} shared WN), " if glow is not None else "")
+            + f"{sum(p.numel() for p in m.parameters()) / 1e6:.2f}M generator parameters")
+
+
+def portaspeech_adv(root, binary, smi):
+    """Phase 12a: configs/datasets/biaobei/ps_adv.yaml through run.main on
+    the corpus: PS_STEPS steps with validations and checkpoints, a resume
+    for PS_RESUME more, --infer over the test split. Returns the report and
+    the launch counts of each run."""
+    hp = (f"binary_data_dir={binary},max_updates={PS_STEPS},val_check_interval={PS_STEPS // 2},"
+          "num_sanity_val_steps=1")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    trainer, task, train_launches = run_main(root, "ps_adv", hp, config=PS_ADV_CONFIG)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"ps_adv: {ps_widths(task)}")
+    say(f"ps_adv: run.main trained {trainer.global_step} steps in {time.time() - t:.1f} s (validations "
+        f"and checkpoints included); peak memory {peak:.2f} GiB; launches (K1, K2, K3) {train_launches}; "
+        f"on {smi}")
+    report = {"peak_gib": peak, "train": step_report(trainer.history, "ps_adv train", smi)}
+    vals, finite = finite_run(trainer, task)
+    say(f"ps_adv last step: {vals}; validation: {trainer.val_metrics}")
+    if not (trainer.global_step == task.updates_g == task.updates_d == PS_STEPS and finite):
+        raise AssertionError(f"ps_adv did not train {PS_STEPS} finite steps of both optimizers")
+    del trainer, task
+    trainer, task, resume_launches = run_main(root, "ps_adv", f"max_updates={PS_STEPS + PS_RESUME}",
+                                              config=PS_ADV_CONFIG)
+    report["resume"] = step_report(trainer.history, "ps_adv resume", smi)
+    if [h["step"] for h in trainer.history] != [PS_STEPS + i + 1 for i in range(PS_RESUME)]:
+        raise AssertionError("the resumed ps_adv run did not continue from its checkpoint")
+    del trainer, task
+    trainer, task, infer_launches = run_main(root, "ps_adv", "", "--infer", config=PS_ADV_CONFIG)
+    n_test = CORPUS_SPLITS["test"]
+    report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
+    say(f"ps_adv --infer: {n_test} test utterances in {trainer.test_seconds:.2f} s, "
+        f"{report['test_ms_per_utterance']:.2f} ms per utterance (batches of 1, max_frames "
+        f"{task.cfg['max_frames']}, no writes); on {smi}")
+    del trainer, task
+    torch.cuda.empty_cache()
+    return report, {"ps_adv_train": train_launches, "ps_adv_resume": resume_launches,
+                    "ps_adv_infer": infer_launches}
+
+
+def portaspeech_flow(root, binary, smi):
+    """Phase 12b: configs/datasets/biaobei/ps_flow.yaml with use_post_glow,
+    post_glow_training_start cut to PS_FLOW_SWITCH: PS_FLOW_STOP steps
+    (stage 1), a resume to PS_FLOW_STEPS across the switch, each stage's
+    frozen part checked untouched through the checkpoints, then --infer
+    with the Glow's sample. Returns the report and the launch counts."""
+    from dicttts_tpu_torch.train.tasks.ps_flow import POST_FLOW_PREFIX
+    from dicttts_tpu_torch.utils.checkpoint import load_checkpoint
+
+    work_dir = os.path.join(root, "checkpoints", "ps_flow")
+    hp = (f"binary_data_dir={binary},max_updates={PS_FLOW_STOP},val_check_interval={PS_FLOW_SWITCH},"
+          f"num_sanity_val_steps=1,use_post_glow=True,post_glow_training_start={PS_FLOW_SWITCH}")
+    torch.cuda.reset_peak_memory_stats()
+    trainer, task, first = run_main(root, "ps_flow", hp, config=PS_FLOW_CONFIG)
+    say(f"ps_flow: {ps_widths(task)}")
+    with torch.random.fork_rng(devices=[]):  # the weights build_state(seed) made, before any step
+        torch.manual_seed(trainer.seed)
+        init = task.build_model().state_dict()
+    history = list(trainer.history)
+    del trainer, task
+    trainer, task, second = run_main(root, "ps_flow", f"max_updates={PS_FLOW_STEPS}",
+                                     config=PS_FLOW_CONFIG)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    history += trainer.history
+    report = {"peak_gib": peak, "train": step_report(history, "ps_flow train", smi)}
+    # h["step"] counts the steps taken, this one included: stage 2 from the switch on
+    report["stage_ms"] = {f"stage {1 + (h['step'] > PS_FLOW_SWITCH)}": [] for h in history}
+    for h in history:
+        report["stage_ms"][f"stage {1 + (h['step'] > PS_FLOW_SWITCH)}"].append(
+            [h["step"], f"{h['sentences']}x{h['frames']}", h["step_ms"]])
+    say(f"ps_flow step, batch and ms by stage: {report['stage_ms']}; on {smi}")
+    vals, finite = finite_run(trainer, task)
+    say(f"ps_flow last step: {vals}; validation: {trainer.val_metrics}; peak memory {peak:.2f} GiB; "
+        f"launches (K1, K2, K3) {first} then {second}; on {smi}")
+    counts = (task.step, task.updates_g, task.updates_pf, task.updates_d)
+    want = (PS_FLOW_STEPS, PS_FLOW_SWITCH, PS_FLOW_STEPS - PS_FLOW_SWITCH, 0)
+    if counts != want or not finite or float(vals["post_stage"]) != 1.0:
+        raise AssertionError(f"ps_flow (step, main, post-flow, disc updates) {counts}, not {want}")
+    ckpt = {n: load_checkpoint(os.path.join(work_dir, f"model_ckpt_steps_{n}.ckpt"))[1]["params_g"]
+            for n in (PS_FLOW_STOP, PS_FLOW_SWITCH, PS_FLOW_STEPS)}
+
+    def same(a, b, post):
+        return all(torch.equal(a[k].cpu(), b[k].cpu()) for k in a if k.startswith(POST_FLOW_PREFIX) == post)
+
+    checks = {"post-flow untouched in stage 1": same(init, ckpt[PS_FLOW_SWITCH], True),
+              "main untouched in stage 2": same(ckpt[PS_FLOW_SWITCH], ckpt[PS_FLOW_STEPS], False),
+              "main trained in stage 1 (after the resume too)": not same(ckpt[PS_FLOW_STOP],
+                                                                         ckpt[PS_FLOW_SWITCH], False),
+              "post-flow trained in stage 2": not same(ckpt[PS_FLOW_SWITCH], ckpt[PS_FLOW_STEPS], True)}
+    say(f"ps_flow partitions through checkpoints {sorted(ckpt)}: {checks}")
+    if not all(checks.values()):
+        raise AssertionError(f"ps_flow stages moved the wrong partition: {checks}")
+    del trainer, task
+    trainer, task, infer_launches = run_main(root, "ps_flow", "", "--infer", config=PS_FLOW_CONFIG)
+    n_test = CORPUS_SPLITS["test"]
+    report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
+    zero_launch_counts()
+    outputs = trainer.test(task)  # run.main --infer returns none; the same pass again
+    torch.cuda.synchronize()
+    infer_launches = tuple(a + b for a, b in zip(infer_launches, launch_counts()))
+    mels = [o["mel_out"][0][o["mel2word"][0] > 0] for o in outputs]
+    spread = [float(m.std()) for m in mels]
+    say(f"ps_flow --infer with the post-glow sample: {n_test} test utterances in "
+        f"{trainer.test_seconds:.2f} s, {report['test_ms_per_utterance']:.2f} ms per utterance; frames "
+        f"{[len(m) for m in mels]}, mel std {min(spread):.4f}-{max(spread):.4f}; on {smi}")
+    if not (len(mels) == n_test and all(len(m) and np.isfinite(m).all() for m in mels)
+            and min(spread) > 0):
+        raise AssertionError("ps_flow --infer mels are not finite, or empty, or all equal")
+    report["counts"] = dict(zip(("step", "updates_main", "updates_post_flow", "updates_disc"), counts))
+    del trainer, task
+    torch.cuda.empty_cache()
+    return report, {"ps_flow_train": tuple(a + b for a, b in zip(first, second)),
+                    "ps_flow_infer": infer_launches}
+
+
+def portaspeech_card_vs_cpu(smi):
+    """Phase 12c: one ps_adv step and one post-glow stage-2 step on the card
+    and on the CPU from the same weights, batch, noise and crop starts, at
+    B=2 and PS_CHECK_CFG's small widths: every loss and gradient norm."""
+    from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
+    from dicttts_tpu_torch.train.tasks.ps_flow import PortaSpeechFlowTask
+
+    rng = np.random.RandomState(SEED + 12)
+    B, T = 2, 128
+    batch = ps_batch(rng, B, 24, 10, T)
+    eps = torch.tensor(rng.randn(B, T // 4, PS_CHECK_CFG["latent_size"]).astype(np.float32))
+    sg = crop_starts(rng.rand(3), batch["mel_lengths"], T)
+    sd = crop_starts(rng.rand(3), batch["mel_lengths"], T)
+    rtol, worst = 2e-3, 0.0  # TF32 off; cuDNN and the CPU sum in different orders
+    for label, cls, extra in (("ps_adv", PortaSpeechAdvTask, {}),
+                              ("ps_flow stage 2", PortaSpeechFlowTask,
+                               {"use_post_glow": True, "post_glow_training_start": 0})):
+        cfg = {**PS_CHECK_CFG, **extra}
+        card, cpu = cls(cfg, device="cuda"), cls(cfg, device="cpu")
+        card.build_state(SEED + 13)
+        cpu.build_state(SEED + 13)
+        cpu.model.load_state_dict(card.model.state_dict())
+        cpu.disc.load_state_dict(card.disc.state_dict())
+        out = {}
+        for name, task in (("card", card), ("cpu", cpu)):
+            dev = task.device
+            m = task.train_step(task.to_device(batch), eps=eps.to(dev), start_frames_g=sg.to(dev),
+                                start_frames_d=sd.to(dev))
+            out[name] = {k: float(v) for k, v in m.items()}
+        for k, ref in out["cpu"].items():
+            rel = abs(out["card"][k] - ref) / max(abs(ref), 1e-6)
+            worst = max(worst, rel)
+            say(f"  {label} {k}: card {out['card'][k]:.6f} cpu {ref:.6f} rel {rel:.2e}")
+        if set(out["card"]) != set(out["cpu"]):
+            raise AssertionError(f"{label}: card and CPU report different values")
+    say(f"card vs CPU: worst relative difference {worst:.2e} (tol {rtol:.0e}) over both steps' losses "
+        f"and gradient norms; on {smi}")
+    if worst > rtol:
+        raise AssertionError("card and CPU PortaSpeech steps disagree")
+    return worst
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)  # never outlive the run's limit
     say("phase 0: device")
@@ -2224,6 +2447,31 @@ def main() -> int:
         if recipe_launches["offline_pipeline_and_vocoder"] != (0, 0, 0):
             raise AssertionError("phase 11 launched a bank or S2PA kernel")
     say(f"phase 11 done at {time.time() - T_START:.1f} s")
+
+    t12 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_portaspeech_") as root:
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        ps_corpus = link_corpus(binary, np.random.RandomState(SEED))
+        say(f"phase 12a: PortaSpeech with the mel discriminator through run.main on the {ps_corpus} "
+            f"corpus, {PS_ADV_CONFIG}")
+        ps_report, ps_launches = portaspeech_adv(root, binary, smi)
+        say("phase 12a report " + json.dumps(ps_report))
+        say(f"phase 12b: PortaSpeech flow with the two-stage post-glow, {PS_FLOW_CONFIG}, "
+            f"post_glow_training_start cut from 160000 to {PS_FLOW_SWITCH}")
+        flow_report, flow_launches = portaspeech_flow(root, binary, smi)
+        say("phase 12b report " + json.dumps(flow_report))
+        say("phase 12c: one ps_adv step and one post-glow step on the card and on the CPU")
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        portaspeech_card_vs_cpu(smi)
+        torch.cuda.synchronize()
+        by_run = {**ps_launches, **flow_launches, "ps_card_vs_cpu": launch_counts()}
+        recipe_launches["portaspeech"] = tuple(map(sum, zip(*by_run.values())))
+        say(f"phase 12 launches (K1, K2, K3) by run {by_run}, in all {recipe_launches['portaspeech']}")
+        if any(n != (0, 0, 0) for n in by_run.values()):
+            raise AssertionError(f"phase 12 launched a bank or S2PA kernel: {by_run}")
+    say(f"phase 12 done in {time.time() - t12:.1f} s, at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),

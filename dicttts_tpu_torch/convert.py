@@ -15,7 +15,12 @@ the flax tree exactly. Layout rules:
 - Conv2d kernel [kh, kw, in, out] (HWIO) -> Conv2d weight [out, in, kh, kw];
 - Embedding and LayerNorm parameters are unchanged.
 
-The discriminators have no converter in the JAX package;
+The JAX package has no converter for ``FFTBlocks``, the post-net ``Glow``
+or PortaSpeech's word-to-frame projections: ``fft_blocks_state``,
+``glow_state`` and ``portaspeech_state`` name them directly; PortaSpeech's
+phone encoder, duration predictor and FVAE keep the names its
+``convert_rel_encoder``, ``convert_duration_predictor`` and
+``convert_fvae`` read. The discriminators have no converter in the JAX package;
 ``discriminator_state``, ``jcu_state`` and ``hifigan_disc_state`` map
 their flax trees directly.
 The same functions map a gradient tree, which has the parameters' layout.
@@ -31,10 +36,13 @@ from dicttts_tpu_torch.models.dict_encoder import DictEncoder, S2PAAttention
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.discriminator import JCUDiscriminator, MultiWindowDiscriminator
 from dicttts_tpu_torch.models.duration import DurationPredictor
+from dicttts_tpu_torch.models.fft_blocks import FFTBlocks
 from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.fvae import FVAE
 from dicttts_tpu_torch.models.hifigan import HifiGanDiscriminator, HifiGanGenerator
-from dicttts_tpu_torch.models.layers import RelTransformerLayers
+from dicttts_tpu_torch.models.layers import ConvReluNorm, RelTransformerEncoder, RelTransformerLayers
+from dicttts_tpu_torch.models.portaspeech import PortaSpeech
+from dicttts_tpu_torch.models.post_glow import Glow
 from dicttts_tpu_torch.models.wavenet import WN
 
 
@@ -65,12 +73,19 @@ def _ln(out: dict, name: str, p: dict) -> None:
     out[f"{name}.beta"] = p["beta"]
 
 
+def attn_state(out: dict, prefix: str, p: dict) -> None:
+    for ours, theirs in (("q", "conv_q"), ("k", "conv_k"), ("v", "conv_v"), ("out", "conv_o")):
+        _dense_1x1(out, f"{prefix}{theirs}", p[ours])
+
+
 def rel_layers_state(p: dict, n_layers: int, prefix: str = "") -> dict:
     out: dict = {}
     for i in range(n_layers):
         attn = p[f"RelMultiHeadAttention_{i}"]
-        for ours, theirs in (("q", "conv_q"), ("k", "conv_k"), ("v", "conv_v"), ("out", "conv_o")):
-            _dense_1x1(out, f"{prefix}attn_layers.{i}.{theirs}", attn[ours])
+        attn_state(out, f"{prefix}attn_layers.{i}.", attn)
+        if "rel_k" in attn:
+            out[f"{prefix}attn_layers.{i}.emb_rel_k"] = attn["rel_k"]
+            out[f"{prefix}attn_layers.{i}.emb_rel_v"] = attn["rel_v"]
         _ln(out, f"{prefix}norm_layers_1.{i}", p[f"LayerNorm_{2 * i}"])
         _ln(out, f"{prefix}norm_layers_2.{i}", p[f"LayerNorm_{2 * i + 1}"])
         _conv_entry(out, f"{prefix}ffn_layers.{i}.conv_1", p[f"ConvFFN_{i}"]["Conv_0"])
@@ -160,6 +175,77 @@ def dict_tts_state(p: dict, module: DictTTS) -> dict:
     return out
 
 
+def conv_relu_norm_state(p: dict, n_layers: int, prefix: str = "") -> dict:
+    out: dict = {}
+    for i in range(n_layers):
+        _conv_entry(out, f"{prefix}conv_layers.{i}", p[f"Conv_{i}"])
+        _ln(out, f"{prefix}norm_layers.{i}", p[f"LayerNorm_{i}"])
+    _conv_entry(out, f"{prefix}proj", p[f"Conv_{n_layers}"])
+    return out
+
+
+def rel_encoder_state(p: dict, module: RelTransformerEncoder, prefix: str = "") -> dict:
+    out = {f"{prefix}emb.weight": p["Embed_0"]["embedding"]}
+    if module.pre is not None:
+        out.update(conv_relu_norm_state(p["ConvReluNorm_0"], len(module.pre.conv_layers),
+                                        f"{prefix}pre."))
+    out.update(rel_layers_state(p["RelTransformerLayers_0"], len(module.encoder.attn_layers),
+                                f"{prefix}encoder."))
+    return out
+
+
+def fft_blocks_state(p: dict, module: FFTBlocks, prefix: str = "") -> dict:
+    out: dict = {}
+    if module.pos_alpha is not None:
+        out[f"{prefix}pos_alpha"] = p["SinusoidalPosEmb_0"]["alpha"]
+    for i in range(len(module.attn)):
+        _ln(out, f"{prefix}ln1.{i}", p[f"ln1_{i}"])
+        attn_state(out, f"{prefix}attn.{i}.", p[f"attn_{i}"])
+        _ln(out, f"{prefix}ln2.{i}", p[f"ln2_{i}"])
+        _conv_entry(out, f"{prefix}ffn1.{i}", p[f"ffn1_{i}"])
+        out[f"{prefix}ffn2.{i}.weight"] = _dense(p[f"ffn2_{i}"]["kernel"])
+        out[f"{prefix}ffn2.{i}.bias"] = p[f"ffn2_{i}"]["bias"]
+    _ln(out, f"{prefix}ln_out", p["ln_out"])
+    return out
+
+
+def glow_state(p: dict, module: Glow, prefix: str = "") -> dict:
+    """Glow: flax {'actnorm_<i>', 'invconv_<i>', 'coupling_<i>' (pre, post,
+    and enc unless shared), 'shared_wn_<s>'} -> the port's ``state_dict``."""
+    out: dict = {}
+    for s, wn in enumerate(module.shared_wn):
+        out.update(wn_state(p[f"shared_wn_{s}"], wn.n_layers, f"{prefix}shared_wn.{s}."))
+    for i, coupling in enumerate(module.coupling):
+        out[f"{prefix}actnorm.{i}.logs"] = p[f"actnorm_{i}"]["logs"]
+        out[f"{prefix}actnorm.{i}.bias"] = p[f"actnorm_{i}"]["bias"]
+        out[f"{prefix}invconv.{i}.weight"] = p[f"invconv_{i}"]["weight"]
+        c = p[f"coupling_{i}"]
+        _conv_entry(out, f"{prefix}coupling.{i}.pre", c["pre"])
+        if coupling.enc is not None:
+            out.update(wn_state(c["enc"], coupling.enc.n_layers, f"{prefix}coupling.{i}.enc."))
+        _conv_entry(out, f"{prefix}coupling.{i}.post", c["post"])
+    return out
+
+
+def portaspeech_state(p: dict, module: PortaSpeech) -> dict:
+    """PortaSpeech: the phone encoder and the duration predictor and FVAE
+    under the reference's torch names (which the JAX package's
+    ``convert_rel_encoder``, ``convert_duration_predictor`` and
+    ``convert_fvae`` read), the word encoder, the word-to-frame projections
+    (Linear, no bias) and the post-net Glow."""
+    out = rel_encoder_state(p["ph_encoder"], module.ph_encoder, "ph_encoder.")
+    out.update(fft_blocks_state(p["word_encoder"], module.word_encoder, "word_encoder."))
+    for name in ("enc_pos_proj", "dec_query_proj", "dec_res_proj", "attn_out"):
+        out[f"{name}.weight"] = _dense(p[name]["kernel"])
+    out.update(duration_state(p["dur_predictor"], len(module.dur_predictor.conv), "dur_predictor."))
+    out.update(fvae_state(p["fvae"], module.fvae, "fvae."))
+    if module.num_spk > 0:
+        out["spk_embed_proj.weight"] = p["spk_embed_proj"]["embedding"]
+    if module.post_flow is not None:
+        out.update(glow_state(p["post_flow"], module.post_flow, "post_flow."))
+    return out
+
+
 def hifigan_state(p: dict, module: HifiGanGenerator) -> dict:
     out: dict = {}
     _conv_entry(out, "conv_pre", p["conv_pre"])
@@ -233,6 +319,16 @@ def jax_params_to_state(module: nn.Module, params: dict) -> dict:
     """The port ``state_dict`` (numpy arrays) equivalent to a flax tree."""
     if isinstance(module, DictTTS):
         return dict_tts_state(params, module)
+    if isinstance(module, PortaSpeech):
+        return portaspeech_state(params, module)
+    if isinstance(module, Glow):
+        return glow_state(params, module)
+    if isinstance(module, RelTransformerEncoder):
+        return rel_encoder_state(params, module)
+    if isinstance(module, ConvReluNorm):
+        return conv_relu_norm_state(params, len(module.conv_layers))
+    if isinstance(module, FFTBlocks):
+        return fft_blocks_state(params, module)
     if isinstance(module, HifiGanGenerator):
         return hifigan_state(params, module)
     if isinstance(module, HifiGanDiscriminator):

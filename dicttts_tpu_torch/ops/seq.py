@@ -1,4 +1,5 @@
-"""Sequence glue: masks, length regulation and the word-to-frame gather.
+"""Sequence glue: masks, length regulation, the word-to-frame gather, and
+the word pooling, word masks and intra-word positions of PortaSpeech.
 
 Port of ``dicttts_tpu/ops/seq.py``. All functions take and return
 feature-last ``[B, T, C]`` tensors and integer maps, as the JAX versions do.
@@ -68,3 +69,39 @@ def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean of x over positions where mask is nonzero (mask broadcasts to x)."""
     mask = mask.to(x.dtype).expand_as(x)
     return torch.sum(x * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _segment_onehot(seg_ids: torch.Tensor, max_len: int, dtype: torch.dtype) -> torch.Tensor:
+    """[B, T] 1-based segment ids (0 = pad) -> [B, T, max_len] one-hot."""
+    ids = torch.arange(1, max_len + 1, device=seg_ids.device, dtype=seg_ids.dtype)
+    return (seg_ids[:, :, None] == ids).to(dtype)
+
+
+def group_hidden_by_segs(h: torch.Tensor, seg_ids: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Mean-pool h [B, T, C] into [B, max_len, C] segments by 1-based
+    ``seg_ids`` [B, T] (0 = pad, dropped); an empty segment is zero."""
+    onehot = _segment_onehot(seg_ids, max_len, h.dtype)
+    summed = torch.einsum("btc,bts->bsc", h, onehot)
+    counts = onehot.sum(dim=1)[:, :, None]
+    return summed / torch.clamp(counts, min=1.0)
+
+
+def scatter_sum_by_segs(values: torch.Tensor, seg_ids: torch.Tensor, max_len: int) -> torch.Tensor:
+    """Sum values [B, T] into [B, max_len] segments (1-based ids, 0 dropped)."""
+    return torch.einsum("bt,bts->bs", values, _segment_onehot(seg_ids, max_len, values.dtype))
+
+
+def build_word_mask(x2word: torch.Tensor, y2word: torch.Tensor) -> torch.Tensor:
+    """[B, Tx], [B, Ty] -> [B, Tx, Ty] int32, 1 where the word ids are equal
+    (pad id 0 equals pad id 0)."""
+    return (x2word[:, :, None] == y2word[:, None, :]).to(torch.int32)
+
+
+def intra_word_positions(word2word: torch.Tensor, x2word: torch.Tensor) -> torch.Tensor:
+    """Position of each element of x2word [B, T] within its word, in
+    (0, 1]: the k-th of a word of n elements gets k / n; elements of no
+    word in ``word2word`` [B, W] (arange + 1) get 0."""
+    mask = build_word_mask(word2word, x2word).float()  # [B, W, T]
+    cums = torch.cumsum(mask, dim=-1)
+    denom = torch.clamp(mask.sum(dim=-1, keepdim=True), min=1.0)
+    return (cums / denom * mask).sum(dim=1)

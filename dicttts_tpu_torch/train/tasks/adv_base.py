@@ -2,9 +2,9 @@
 discriminator.
 
 Port of ``dicttts_tpu/train/tasks/adv_base.py`` (``AdversarialTTSTask``).
-Subclasses provide the generator (``self.model``), ``_gen_losses`` and
-``_dict_msg``-style batch handling; this base owns the discriminator, both
-AdamW optimizers with their schedules, and the two-optimizer train step.
+Subclasses provide the generator (``build_model``) and its training pass
+(``_forward``); this base owns the losses, the discriminator, both AdamW
+optimizers with their schedules, and the two-optimizer train step.
 
 One step, as in the JAX package:
 
@@ -59,6 +59,7 @@ import torch
 from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
 from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dtype
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
+from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
 
 log = logging.getLogger("dicttts_tpu_torch.task")
@@ -105,7 +106,8 @@ def frozen(module: torch.nn.Module):
 
 class AdversarialTTSTask:
     """Base: generator + multi-window mel discriminator training. Subclasses
-    set ``cfg``, ``device`` and ``data`` (the batch provider, or None)."""
+    set ``cfg``, ``device``, ``data`` (the batch provider, or None) and
+    ``mel_loss_spec``, and give ``build_model()`` and ``_forward()``."""
 
     frame_cache: dict | None = None  # {'mels' [N, T, 80], ('f0', 'uv' [N, T])} on the device
 
@@ -155,6 +157,25 @@ class AdversarialTTSTask:
         if self.accumulate > 1:
             self.acc = {name: {"grads": [torch.zeros_like(p) for p in m.parameters()], "n": 0}
                         for name, m in (("g", self.model), ("d", self.disc))}
+
+    def build_state(self, seed: int) -> None:
+        """Seeded generator (``build_model()``) and discriminator on the
+        device, the optimizers, counters at 0. The global RNG is left as it
+        was."""
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(seed)
+            self.model = self.build_model().to(self.device)
+            self.disc = self._build_disc().to(self.device)
+        self._build_optimizers()
+
+    def train_batches(self):
+        return self.data.train_batches()
+
+    def val_batches(self):
+        return self.data.val_batches()
+
+    def test_batches(self):
+        return self.data.test_batches()
 
     def _hold(self, name: str, make) -> dict:
         """``make()``'s arrays as tensors on the device; its build and upload
@@ -216,8 +237,30 @@ class AdversarialTTSTask:
         return upcast_transfer_dtypes(batch)
 
     # subclass contract:
-    #   _gen_losses(batch, generator, train, adv_w=1.0, eps=None, start_frames=None)
-    #     -> (total_loss, losses_dict, model_out_dict with 'mel_out')
+    #   build_model() -> the generator;
+    #   _forward(batch, generator, eps) -> its training outputs (kl, mel_out, dur, ...)
+
+    def _main_losses(self, out: dict, batch: dict) -> dict:
+        """KL (times lambda_kl, clamped at kl_min), the composite mel loss
+        (``self.mel_loss_spec``) and the word-duration loss, in f32."""
+        with self.f32():
+            losses = {"kl": L.clamp_kl(out["kl"].float() * self.cfg["lambda_kl"], self.cfg["kl_min"])}
+            L.add_mel_losses(self.mel_loss_spec, out["mel_out"], batch["mels"], losses)
+            losses["wdur"] = L.word_dur_loss(out["dur"].float(), batch["mel2word"],
+                                             batch["word_lengths"], self.cfg["dur_scale"])
+        return losses
+
+    def _gen_losses(self, batch: dict, generator=None, train: bool = True, adv_w: float = 1.0,
+                    eps=None, start_frames=None):
+        """(total, losses, model outputs): the main losses, plus in training
+        the adversarial term times lambda_mel_adv and ``adv_w``."""
+        with self.amp():
+            out = self._forward(batch, generator, eps)
+        losses = self._main_losses(out, batch)
+        if train and self.lambda_adv > 0:
+            losses["a"] = (self._adv_gen_loss(out["mel_out"], batch["mel_lengths"], generator,
+                                              start_frames) * self.lambda_adv * adv_w)
+        return sum(losses.values()), losses, out
 
     def _adv_gen_loss(self, mel_pred, mel_lengths, generator=None, start_frames=None):
         """LSGAN-to-1 term of the generator objective; the discriminator is
@@ -261,7 +304,7 @@ class AdversarialTTSTask:
                 p.grad.copy_(a)
                 a.zero_()
             acc["n"] = 0
-        count = "updates_g" if name == "g" else "updates_d"
+        count = f"updates_{name}"
         norm = self._update(opt, params, max_norm, schedule(getattr(self, count)))
         setattr(self, count, getattr(self, count) + 1)
         return norm

@@ -156,24 +156,6 @@ class DictTTSTask(AdversarialTTSTask):
             s2pa_sense_mode=c.get("s2pa_sense_mode", "token"),
             s2pa_max_senses=c.get("s2pa_max_senses", 10))
 
-    def build_state(self, seed: int) -> None:
-        """Seeded generator and discriminator on the device, both optimizers,
-        counters at 0. The global RNG is left as it was."""
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            self.model = self.build_model().to(self.device)
-            self.disc = self._build_disc().to(self.device)
-        self._build_optimizers()
-
-    def train_batches(self):
-        return self.data.train_batches()
-
-    def val_batches(self):
-        return self.data.val_batches()
-
-    def test_batches(self):
-        return self.data.test_batches()
-
     def _dict_msg(self, batch: dict) -> DictMsg:
         """The batch's gathered bank; or the device bank, un-gathered
         (``s2pa_bank_fused``) or gathered by word id in its dtype, with its
@@ -189,21 +171,10 @@ class DictTTSTask(AdversarialTTSTask):
         keys = b["keys"] if self.bank_fused else b["keys"][wt]
         return DictMsg(keys, keys, b["key_map"][wt], b["pinyin"][wt], b["pinyin_map"][wt])
 
-    def _gen_losses(self, batch: dict, generator=None, train: bool = True, adv_w: float = 1.0,
-                    eps=None, start_frames=None):
-        with self.amp():
-            out = self.model(batch["word_tokens"], self._dict_msg(batch), batch.get("pron_modified"),
-                             mel2word=batch["mel2word"], spk_ids=batch.get("spk_ids"),
-                             tgt_mels=batch["mels"], noise=eps, generator=generator)
-        with self.f32():
-            losses = {"kl": L.clamp_kl(out["kl"].float() * self.cfg["lambda_kl"], self.cfg["kl_min"])}
-            L.add_mel_losses(self.mel_loss_spec, out["mel_out"], batch["mels"], losses)
-            losses["wdur"] = L.word_dur_loss(out["dur"].float(), batch["mel2word"],
-                                             batch["word_lengths"], self.cfg["dur_scale"])
-        if train and self.lambda_adv > 0:
-            losses["a"] = (self._adv_gen_loss(out["mel_out"], batch["mel_lengths"], generator,
-                                              start_frames) * self.lambda_adv * adv_w)
-        return sum(losses.values()), losses, out
+    def _forward(self, batch: dict, generator=None, eps=None) -> dict:
+        return self.model(batch["word_tokens"], self._dict_msg(batch), batch.get("pron_modified"),
+                          mel2word=batch["mel2word"], spk_ids=batch.get("spk_ids"),
+                          tgt_mels=batch["mels"], noise=eps, generator=generator)
 
     @torch.no_grad()
     def test_step(self, batch: dict, generator: torch.Generator | None = None,

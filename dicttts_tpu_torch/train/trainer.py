@@ -14,7 +14,8 @@ Port of the single-device loop of ``dicttts_tpu/train/trainer.py``:
   ``monitor_key`` / ``monitor_mode`` is kept beside the rotated ones, and
   its value is read back on resume.
 - ``test(task)`` runs ``task.test_step`` over ``task.test_batches()`` from
-  the newest checkpoint, then the task's ``after_test_step`` / ``test_end``.
+  the newest checkpoint, then the task's ``after_test_step`` / ``test_end``
+  where it has them (the PortaSpeech tasks have neither).
 
 Each step's randomness (dropout masks, the posterior noise, crop starts)
 comes from a ``torch.Generator`` seeded by (seed, step), so a resumed run
@@ -114,7 +115,7 @@ class Trainer:
 
     def fit(self, task, train_batches: Iterable[dict] | None = None,
             val_batches: Iterable[dict] | None = None) -> None:
-        """Train ``task`` (a ``DictTTSTask`` or ``HifiGanTask`` on this trainer's device) to
+        """Train ``task`` (a task of ``train/tasks`` on this trainer's device) to
         ``max_updates``, resuming from the newest checkpoint in work_dir.
         The batches are the task's (``task.train_batches()``, read again
         each epoch, and ``task.val_batches()``), or the iterables given
@@ -201,8 +202,9 @@ class Trainer:
     @torch.no_grad()
     def test(self, task) -> list:
         """The task's test loop from the newest checkpoint: per batch,
-        ``task.after_test_step(i, host batch, host outputs)``; then
-        ``task.test_end``. Returns the per-batch results."""
+        ``task.after_test_step(i, host batch, host outputs)`` (or the host
+        outputs themselves where the task has no such hook); then
+        ``task.test_end``, if it has one. Returns the per-batch results."""
         if task.device != self.device:
             raise ValueError(f"task on {task.device}, trainer on {self.device}")
         self._restore(task)
@@ -214,7 +216,9 @@ class Trainer:
             gen = torch.Generator(device=self.device).manual_seed(self.seed + 1 + i)
             out = task.test_step(task.to_device(_host(batch)), gen)
             out = {k: v.cpu().numpy() for k, v in out.items()}
-            outputs.append(task.after_test_step(i, batch, out))
-        task.test_end(outputs)
+            outputs.append(task.after_test_step(i, batch, out) if hasattr(task, "after_test_step")
+                           else out)
+        if hasattr(task, "test_end"):
+            task.test_end(outputs)
         self.test_seconds = time.perf_counter() - t
         return outputs

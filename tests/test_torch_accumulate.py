@@ -50,6 +50,9 @@ from dicttts_tpu_torch.convert import jax_params_to_state, load_jax_params  # no
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask  # noqa: E402
 from dicttts_tpu_torch.train.trainer import Trainer  # noqa: E402
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 K = 2
 U = np.array([0.3, 0.8, 0.45], np.float32)
 

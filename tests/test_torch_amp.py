@@ -58,6 +58,9 @@ from dicttts_tpu_torch.ops.amp import task_activation_dtype  # noqa: E402
 from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused  # noqa: E402
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask  # noqa: E402
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 CFG = cs.AMP_CHECK_CFG
 INFER_FRAMES = CFG["max_frames"]
 

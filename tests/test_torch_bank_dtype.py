@@ -43,6 +43,9 @@ from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor, slot_order
 from dicttts_tpu_torch.serve import DictTTSServer, Request
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 BF16 = ml_dtypes.bfloat16
 
 

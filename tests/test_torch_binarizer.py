@@ -58,6 +58,9 @@ from dicttts_tpu_torch.text import textgrid as ttg  # noqa: E402
 from dicttts_tpu_torch.utils.indexed_dataset import IndexedDataset  # noqa: E402
 from dicttts_tpu_torch.vocoders.hifigan import load_wav, save_wav  # noqa: E402
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CORPUS = os.path.join(ROOT, ".prod_corpus")
 SR = 22050

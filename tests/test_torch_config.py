@@ -3,7 +3,10 @@ dicttts_tpu_torch/configs/) against dicttts_tpu.config and its YAML files:
 the recipe resolves to the same dict key for key (task_cls apart, which
 names the port's task; the HiFi-GAN configs too), override strings coerce alike, the saved
 config.yaml is read back as the JAX package reads it, and run.py names
-the tasks the port lacks."""
+the tasks the port lacks. The PortaSpeech trees (tts/ps_adv.yaml,
+tts/ps_flow.yaml, datasets/biaobei/{base_text2mel,ps_adv,ps_flow}.yaml)
+equal the JAX trees but for task_cls, which names the port's task of the
+same module path (dicttts_tpu_torch. for dicttts_tpu.)."""
 
 import os
 
@@ -15,13 +18,18 @@ from dicttts_tpu_torch import config as tconfig
 from dicttts_tpu_torch.run import task_class
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
+from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
+from dicttts_tpu_torch.train.tasks.ps_flow import PortaSpeechFlowTask
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 FILES = ["base.yaml", "tts/base.yaml", "tts/ps_flow.yaml", "tts/ps_adv.yaml", "tts/dict_tts.yaml",
          "datasets/biaobei/dict_tts.yaml", "tts/hifigan.yaml", "datasets/biaobei/hifigan.yaml",
-         "datasets/wenetspeech/hifigan.yaml"]
+         "datasets/wenetspeech/hifigan.yaml", "datasets/biaobei/base_text2mel.yaml",
+         "datasets/biaobei/ps_adv.yaml", "datasets/biaobei/ps_flow.yaml"]
 PORT_TASK = "dicttts_tpu_torch.train.tasks.dict_tts.DictTTSTask"
 PORT_VOCODER_TASK = "dicttts_tpu_torch.train.tasks.hifigan.HifiGanTask"
+PORT_PS_TASKS = {"ps_adv.yaml": "dicttts_tpu_torch.train.tasks.ps_adv.PortaSpeechAdvTask",
+                 "ps_flow.yaml": "dicttts_tpu_torch.train.tasks.ps_flow.PortaSpeechFlowTask"}
 
 
 def _port_task(name):
@@ -30,7 +38,7 @@ def _port_task(name):
         return PORT_TASK
     if name.endswith("hifigan.yaml"):
         return PORT_VOCODER_TASK
-    return None
+    return PORT_PS_TASKS.get(os.path.basename(name))
 
 
 def _pair(name):
@@ -114,11 +122,16 @@ def test_config_view_is_immutable():
 
 @pytest.mark.parametrize("name", FILES[1:])
 def test_run_names_the_tasks_not_ported(name):
-    task_cls = tconfig.load_config(_pair(name)[1], save=False)["task_cls"]
-    if name.endswith("dict_tts.yaml"):
+    task_cls = tconfig.load_config(_pair(name)[1], save=False).get("task_cls")
+    if name.endswith("base_text2mel.yaml"):
+        assert task_cls is None  # a dataset fragment, with no task
+    elif name.endswith("dict_tts.yaml"):
         assert task_class(task_cls) is DictTTSTask
     elif name.endswith("hifigan.yaml"):
         assert task_class(task_cls) is HifiGanTask
+    elif os.path.basename(name) in PORT_PS_TASKS:
+        assert task_class(task_cls) is {"ps_adv.yaml": PortaSpeechAdvTask,
+                                        "ps_flow.yaml": PortaSpeechFlowTask}[os.path.basename(name)]
     else:
         with pytest.raises(NotImplementedError, match=task_cls.replace(".", r"\.")):
             task_class(task_cls)

@@ -36,6 +36,9 @@ from dicttts_tpu_torch.utils import indexed_dataset as tidx
 from dicttts_tpu_torch.utils.prefetch import prefetch_iterator
 from dicttts_tpu_torch.utils.text_encoder import TokenTextEncoder
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CORPUS = os.path.join(ROOT, ".prod_corpus", "binary")
 RECIPE = os.path.join(ROOT, "dicttts_tpu", "configs", "datasets", "biaobei", "dict_tts.yaml")

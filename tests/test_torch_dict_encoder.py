@@ -26,6 +26,9 @@ from dicttts_tpu.ops import s2pa_pallas
 from dicttts_tpu_torch.convert import load_jax_params
 from dicttts_tpu_torch.models import dict_encoder as tde
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 V, L, E, P, H, PINYIN = 40, 12, 32, 6, 32, 30
 B, T = 2, 7
 

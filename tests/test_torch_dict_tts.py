@@ -20,6 +20,9 @@ from dicttts_tpu_torch.convert import load_jax_params
 from dicttts_tpu_torch.models.dict_encoder import DictMsg
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 V, L, E, P, PINYIN = 40, 10, 32, 6, 30
 B, TW, MAX_FRAMES = 2, 8, 64
 KW = dict(word_vocab=V, hidden_size=32, num_heads=2, enc_ffn_kernel_size=5, pinyin_vocab=PINYIN,

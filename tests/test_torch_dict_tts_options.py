@@ -43,6 +43,9 @@ from dicttts_tpu_torch.models import dict_encoder as tde  # noqa: E402
 from dicttts_tpu_torch.models.discriminator import JCUDiscriminator  # noqa: E402
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask  # noqa: E402
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 U = np.array([0.3, 0.8, 0.45], np.float32)
 S = 4  # s2pa_max_senses in these tests
 

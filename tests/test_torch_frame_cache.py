@@ -19,6 +19,9 @@ from dicttts_tpu_torch.config import CONFIG_ROOT, load_config
 from dicttts_tpu_torch.data.datasets import TTSBatchProvider, TTSBinaryDataset
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 CORPUS = os.path.join(os.path.dirname(__file__), "..", ".prod_corpus", "binary")
 RECIPE = os.path.join(CONFIG_ROOT, "datasets", "biaobei", "dict_tts.yaml")
 V, E = 8000, 16

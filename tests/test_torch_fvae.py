@@ -24,6 +24,9 @@ from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.fvae import FVAE
 from dicttts_tpu_torch.models.wavenet import WN
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ATOL = 5e-5
 
 

@@ -38,6 +38,9 @@ from dicttts_tpu_torch.data import datasets as tdata
 from dicttts_tpu_torch.data.providers import SyntheticDictTTSProvider
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CORPUS = os.path.join(ROOT, ".prod_corpus", "binary")
 JAX_RECIPE = os.path.join(ROOT, "dicttts_tpu", "configs", "datasets", "biaobei", "dict_tts.yaml")

@@ -22,6 +22,9 @@ from dicttts_tpu_torch.convert import load_jax_params
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
 from dicttts_tpu_torch.vocoders.hifigan import spec2wav
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 CFG = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=16,
            resblock_kernel_sizes=(3, 7, 11))
 

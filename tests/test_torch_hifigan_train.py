@@ -57,6 +57,9 @@ from dicttts_tpu_torch.train.losses import feature_matching_loss as t_fm  # noqa
 from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask  # noqa: E402
 from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder  # noqa: E402
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 RECIPE = os.path.join(CONFIG_ROOT, "datasets", "biaobei", "hifigan.yaml")
 SEG = 1024  # 4 mel frames: the discriminators (70.7M parameters) set the cost
 CFG = dict(upsample_initial_channel=32, max_samples=SEG, max_sentences=2, disc_start_steps=1)

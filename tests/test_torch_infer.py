@@ -47,6 +47,9 @@ from dicttts_tpu_torch.text.sandhi import FixedSandhi
 from dicttts_tpu_torch.vocoders import HifiGanVocoder, get_vocoder_cls
 from dicttts_tpu_torch.vocoders.hifigan import load_wav
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 CORPUS = os.path.join(ROOT, ".prod_corpus", "binary")
 MAX_FRAMES, LATENT, HOP = 160, 4, 16

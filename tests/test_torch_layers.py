@@ -15,6 +15,9 @@ from dicttts_tpu.models import layers as jl
 from dicttts_tpu_torch.convert import load_jax_params
 from dicttts_tpu_torch.models import layers as tl
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ATOL = 2e-5
 
 

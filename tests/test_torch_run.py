@@ -32,6 +32,9 @@ from dicttts_tpu_torch.train.trainer import Trainer
 from dicttts_tpu_torch.utils import checkpoint as ckpt
 from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 CORPUS = os.path.join(os.path.dirname(__file__), "..", ".prod_corpus", "binary")
 RECIPE = os.path.join(CONFIG_ROOT, "datasets", "biaobei", "dict_tts.yaml")
 SMALL = ("hidden_size=16,dict_embed_dim=8,latent_size=4,fvae_enc_dec_hidden=16,fvae_enc_n_layers=1,"

@@ -25,6 +25,9 @@ from dicttts_tpu_torch.ops import cuda_build
 from dicttts_tpu_torch.ops.s2pa_bank import s2pa_bank_fwd, s2pa_bank_fwd_plain
 from dicttts_tpu_torch.ops.s2pa_fused import s2pa_fused, s2pa_fused_plain
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 
 def _bank_inputs(seed=0, V=24, L=16, E=128, N=21):  # N not a multiple of any tile
     rng = np.random.RandomState(seed)

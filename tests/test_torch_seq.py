@@ -13,6 +13,9 @@ from dicttts_tpu.ops import seq as jseq
 from dicttts_tpu_torch.data.collate import shape_bucket
 from dicttts_tpu_torch.ops import seq as tseq
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 
 def _durations(seed, B=3, T=7, max_dur=6):
     rng = np.random.RandomState(seed)

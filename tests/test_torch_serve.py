@@ -33,6 +33,9 @@ from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
 from dicttts_tpu_torch.serve import DictTTSServer, Request
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 V, L, E, P, PINYIN, MAX_FRAMES, LATENT = 40, 10, 32, 6, 30, 96, 4
 VOC = dict(upsample_rates=(4, 4), upsample_kernel_sizes=(8, 8), upsample_initial_channel=128,
            resblock_kernel_sizes=(3, 7, 11))

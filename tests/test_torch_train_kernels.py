@@ -38,6 +38,9 @@ from dicttts_tpu_torch.models import dict_encoder as tde
 from dicttts_tpu_torch.ops.s2pa_bank import (s2pa_bank_attend, s2pa_bank_bwd, s2pa_bank_bwd_plain,
                                              s2pa_bank_fwd, s2pa_bank_fwd_plain)
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 V, L, E = 24, 16, 128
 
 

@@ -37,6 +37,9 @@ from dicttts_tpu_torch.ops import seq as tseq
 from dicttts_tpu_torch.train import losses as TL
 from dicttts_tpu_torch.utils import schedulers as tsched
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 ATOL = 5e-5
 
 

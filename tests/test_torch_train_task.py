@@ -38,6 +38,9 @@ from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 from dicttts_tpu_torch.train.trainer import Trainer
 from dicttts_tpu_torch.utils.checkpoint import get_all_ckpts
 
+# one intra-op thread: the OpenMP thread teams of parallel pytest workers stall each other
+torch.set_num_threads(1)
+
 RECIPE = os.path.join(os.path.dirname(__file__), "..", "dicttts_tpu", "configs", "tts", "dict_tts.yaml")
 V, L, E, P, M = 40, 12, 32, 6, 80
 B, TW, T = 2, 8, 144
