@@ -127,12 +127,32 @@ Phases, each announced on its own line:
     weights, batch, noise and crops at B=2 and small widths: every loss and
     gradient norm within 2e-3.
 
+13. the FastSpeech2 family, which launches none of the three kernels,
+    on the repo's splits (or the synthetic corpus): (a) run.main with
+    configs/datasets/biaobei/fs2.yaml at the recipe's widths (hidden 256,
+    the rel_fft encoder of 4 layers, the conv decoder of 4 x k9, the
+    pitch predictor; batches of 32000 frames) for 16 steps with
+    validations and checkpoints, a resume for 2 more, --infer over the test
+    split: step ms by batch shape (the card synchronized after each step),
+    host wait, peak memory, ms per test utterance, and one profiled step of
+    the largest batch and one of the slowest shape (top kernels, the share
+    in FFT kernels); (b) each
+    other encoder and decoder of the registry at the recipe's width on that
+    batch: one train step and one inference, finite, ms; (c) TransformerTTS
+    at its default widths (256, 4 + 4 layers): a teacher-forced train step,
+    a cached decode of 200 frames at B = 1 and B = 16 in ms per frame, and
+    the decode against the teacher-forced pass on its own frames; (d) the
+    GE2E encoder's embed_utterance on the card against the CPU from a
+    seeded Resemblyzer state_dict; (e) one fs2 step on the card and on the
+    CPU at B=2 and small widths: every loss and the gradient norm within
+    2e-3.
+
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b, 8, 9, 10, 11 and 12 remove.
+temporary directories that phases 7b, 8, 9, 10, 11, 12 and 13 remove.
 """
 
 from __future__ import annotations
@@ -191,6 +211,16 @@ PS_CHECK_CFG = dict(n_vocab=64, hidden_size=32, enc_layers=2, word_enc_layers=2,
                     fvae_enc_n_layers=2, fvae_dec_n_layers=2, prior_glow_hidden=16,
                     mel_disc_hidden_size=16, post_glow_hidden=32, post_glow_n_blocks=4,
                     post_glow_n_block_layers=2, share_wn_layers=2)
+# phase 13: the FastSpeech2 recipe on the corpus, the other registry entries,
+# TransformerTTS, the GE2E encoder, and one fs2 step on card and CPU
+FS2_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/fs2.yaml"
+FS2_STEPS, FS2_RESUME = 16, 2
+FS2_OTHER_ENTRIES = (("fft", "conv"), ("conformer", "conv"), ("tacotron", "conv"), ("tacotron2", "conv"),
+                     ("rel_fft", "fft"), ("rel_fft", "wn"), ("rel_fft", "conformer"), ("rel_fft", "rnn"))
+FS2_CHECK_CFG = dict(n_vocab=64, hidden_size=32, enc_layers=2, dec_layers=2, enc_ffn_kernel_size=5,
+                     dec_ffn_kernel_size=5, dropout=0.0, predictor_dropout=0.0, pitch_norm="standard",
+                     mel_loss="l1:0.5|ssim:0.5", encoder_type="rel_fft", decoder_type="conv")
+TTS_DECODE_FRAMES = 200
 # phase 11: the offline pipeline and HiFi-GAN training
 VOCODER_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/hifigan.yaml"
 VOC_ROWS = 120  # 12 test, 12 valid and 96 train rows: 4 batches of the recipe's 24 crops
@@ -852,7 +882,8 @@ def synthetic_corpus(binary, rng):
     """A corpus in the binarizer's format with the repo corpus's statistics,
     for a checkout without .prod_corpus: 324/18/18 utterances of 214-574
     frames and 22-58 words (one character each, between <BOS> and <EOS>),
-    a vocabulary of 7998 words and 166 pinyin tokens, log-mel-like values."""
+    a vocabulary of 7998 words and 166 pinyin tokens, log-mel-like values,
+    phone alignments and an f0 glide."""
     from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
     from dicttts_tpu_torch.utils.text_encoder import TokenTextEncoder
 
@@ -879,13 +910,19 @@ def synthetic_corpus(binary, rng):
                                       [24]])
                 mel2word = np.repeat(np.arange(1, n_words + 1), dur)
                 ph2word = np.concatenate([[1], np.repeat(np.arange(2, n_words), 2), [n_words]])
+                # each word's frames split evenly over its phones; an f0 glide, the first word unvoiced
+                first_ph = np.searchsorted(ph2word, np.arange(1, n_words + 1))
+                n_ph = np.bincount(ph2word, minlength=n_words + 1)[1:]
+                pos = np.arange(T) - np.repeat(np.cumsum(dur) - dur, dur)
+                mel2ph = 1 + first_ph[mel2word - 1] + pos * n_ph[mel2word - 1] // dur[mel2word - 1]
+                f0 = np.where(mel2word > 1, np.linspace(120.0, 200.0, T), 0.0)
                 b.add_item({
                     "item_name": f"s{n_item:04d}", "txt": text, "ph": "", "spk_id": 0,
                     "phone": rng.randint(3, 167, len(ph2word)).tolist(),
                     "mel": (rng.randn(T, 80) * 0.8 - 4.5).astype(np.float32),
                     "words": ws, "word_tokens": [words.token_to_id[w] for w in ws],
-                    "ph2word": ph2word, "mel2word": mel2word,
-                    "pron_modified": np.zeros(n_words, np.int64)})
+                    "ph2word": ph2word, "mel2word": mel2word, "mel2ph": mel2ph,
+                    "f0": f0.astype(np.float32), "pron_modified": np.zeros(n_words, np.int64)})
                 lengths.append(T)
                 n_item += 1
         np.save(os.path.join(binary, f"{split}_lengths.npy"), np.array(lengths))
@@ -1403,8 +1440,9 @@ def profile_step(step, label, smi, top=10):
     """One call of step() under torch.profiler, after one call outside it
     (the shape's first: cuDNN's choices and the allocator): its wall ms,
     the device's busy ms, the device time in kernels whose names say FFT
-    (cuDNN's FFT convolutions), and the top kernels. None where the
-    profiler recorded no device time."""
+    (cuDNN's FFT convolutions) and in complex GEMMs (their spectral
+    products), and the top kernels. None where the profiler recorded no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1433,14 +1471,19 @@ def profile_step(step, label, smi, top=10):
     covered /= 1e3
     fft = [e for e in events if "fft" in e.key.lower()]
     fft_ms = sum(e.self_device_time_total for e in fft) / 1e3
+    # the FFT convolutions multiply their spectra in complex GEMMs (cf32 in the name)
+    cgemm_ms = sum(e.self_device_time_total for e in events if "cf32" in e.key) / 1e3
     say(f"{label} profiled: {wall_ms:.1f} ms wall, kernels {busy:.1f} ms summed, some kernel running "
         f"{covered:.1f} ms (idle {100 * max(1 - covered / wall_ms, 0.0):.1f} % of the wall); kernels named "
-        f"FFT: {len(fft)} kinds, {fft_ms:.2f} ms ({100 * fft_ms / max(busy, 1e-9):.1f} % of kernel time); on {smi}")
+        f"FFT: {len(fft)} kinds, {fft_ms:.2f} ms ({100 * fft_ms / max(busy, 1e-9):.1f} % of kernel time), with "
+        f"the complex GEMMs {fft_ms + cgemm_ms:.2f} ms ({100 * (fft_ms + cgemm_ms) / max(busy, 1e-9):.1f} %); "
+        f"on {smi}")
     ranked = sorted(events, key=lambda e: -e.self_device_time_total)[:top]
     for e in ranked:
         say(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:5d} x  {e.key[:110]}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "covered_ms": covered, "fft_kernels": [e.key[:80] for e in fft],
-            "fft_ms": fft_ms, "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in ranked]}
+            "fft_ms": fft_ms, "complex_gemm_ms": cgemm_ms,
+            "top": [[e.key[:80], e.self_device_time_total / 1e3, e.count] for e in ranked]}
 
 
 def profile_fft(task, batch, smi):
@@ -2238,6 +2281,380 @@ def portaspeech_card_vs_cpu(smi):
     return worst
 
 
+@contextlib.contextmanager
+def synced_steps(cls):
+    """``cls.train_step`` followed by ``torch.cuda.synchronize()``, so that
+    the trainer's step ms is the card's step and not the host's enqueue (a
+    FastSpeech2Task step never waits for the card)."""
+    step = cls.train_step
+
+    def synced(self, *args, **kwargs):
+        out = step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        return out
+
+    cls.train_step = synced
+    try:
+        yield
+    finally:
+        cls.train_step = step
+
+
+def fs2_widths(task) -> str:
+    c, m = task.cfg, task.model
+    return (f"encoder {c['encoder_type']} ({c['enc_layers']} layers, ffn k{c['enc_ffn_kernel_size']}), "
+            f"decoder {c['decoder_type']} ({c['dec_layers']} layers, k{c['dec_ffn_kernel_size']}), hidden "
+            f"{c['hidden_size']}, pitch {c['use_pitch_embed']} ({c['pitch_norm']}, uv {c['use_uv']}), n_vocab "
+            f"{c['n_vocab']}, max_tokens {c['max_tokens']}, mel loss {c['mel_loss']}, "
+            f"{sum(p.numel() for p in m.parameters()) / 1e6:.2f}M parameters")
+
+
+def fastspeech2_recipe(root, binary, smi):
+    """Phase 13a: configs/datasets/biaobei/fs2.yaml through run.main on the
+    corpus: FS2_STEPS steps with validations and checkpoints (each step
+    synchronized, for its time), a profiled step of the largest batch and
+    one of the shape whose repeats were slowest, a resume for FS2_RESUME
+    more, --infer over the test split. Returns the
+    report, the launch counts of each run, the recipe's config and the
+    largest batch (host arrays)."""
+    from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
+
+    hp = (f"binary_data_dir={binary},max_updates={FS2_STEPS},val_check_interval={FS2_STEPS // 2},"
+          "num_sanity_val_steps=1")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with synced_steps(FastSpeech2Task):
+        trainer, task, train_launches = run_main(root, "fs2", hp, config=FS2_CONFIG)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"fs2: {fs2_widths(task)}")
+    say(f"fs2: run.main trained {trainer.global_step} steps in {time.time() - t:.1f} s (validations and "
+        f"checkpoints included); peak memory {peak:.2f} GiB; launches (K1, K2, K3) {train_launches}; on {smi}")
+    report = {"peak_gib": peak, "train": step_report(trainer.history, "fs2 train", smi)}
+    say("fs2 train steps in order (step, shape, host wait ms, step ms): " + "; ".join(
+        f"{h['step']} {h['sentences']}x{h['frames']} {h['wait_ms']:.1f} {h['step_ms']:.1f}" for h in trainer.history))
+    vals, finite = finite_run(trainer, task)
+    say(f"fs2 last step: {vals}; validation: {trainer.val_metrics} (f0 in Hz: its loss ~1e4)")
+    if not (trainer.global_step == task.step == FS2_STEPS and finite):
+        raise AssertionError(f"fs2 did not train {FS2_STEPS} finite steps")
+    batches = [{k: v for k, v in b.items() if k != "_meta"} for b in task.train_batches()]
+    big = max(batches, key=lambda b: b["mels"].shape[0] * b["mels"].shape[1])
+    # the largest batch, and the shape whose repeated steps were slowest where that is another
+    repeats = {shape: statistics.median(ms[1:]) for shape, ms in report["train"]["step_ms"].items()
+               if len(ms) > 1}
+    slowest = max(repeats, key=repeats.get) if repeats else None
+    picks = [big] + [b for b in batches if b is not big and "x".join(map(str, b["mels"].shape[:2])) == slowest
+                     and b["mels"].shape[:2] != big["mels"].shape[:2]][:1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    zero_launch_counts()
+    report["profile"] = []
+    for b in picks:
+        shape = tuple(b["mels"].shape[:2])
+        dev = task.to_device(b)
+        prof = profile_step(lambda: task.train_step(dev, gen), f"fs2 step {shape[0]}x{shape[1]}", smi, top=12)
+        report["profile"].append({"shape": shape, **(prof or {"fft_kernels": None})})
+        del dev
+    report["step_gap"] = fs2_step_gap(task, batches, big, gen, smi)
+    torch.cuda.synchronize()
+    profile_launches = launch_counts()
+    cfg = dict(task.cfg)
+    del trainer, task
+    with synced_steps(FastSpeech2Task):
+        trainer, task, resume_launches = run_main(root, "fs2", f"max_updates={FS2_STEPS + FS2_RESUME}",
+                                                  config=FS2_CONFIG)
+    report["resume"] = step_report(trainer.history, "fs2 resume", smi)
+    if [h["step"] for h in trainer.history] != [FS2_STEPS + i + 1 for i in range(FS2_RESUME)]:
+        raise AssertionError("the resumed fs2 run did not continue from its checkpoint")
+    del trainer, task
+    trainer, task, infer_launches = run_main(root, "fs2", "", "--infer", config=FS2_CONFIG)
+    n_test = CORPUS_SPLITS["test"]
+    report["test_ms_per_utterance"] = trainer.test_seconds / n_test * 1e3
+    zero_launch_counts()
+    outputs = trainer.test(task)  # run.main --infer returns none; the same pass again
+    torch.cuda.synchronize()
+    infer_launches = tuple(a + b for a, b in zip(infer_launches, launch_counts()))
+    frames = [int((o["mel2ph"][0] > 0).sum()) for o in outputs]
+    ok = all(np.isfinite(o["mel_out"]).all() and not o["mel_out"][0, n:].any() and o["mel_out"][0, :n].std() > 0
+             for o, n in zip(outputs, frames))
+    say(f"fs2 --infer: {n_test} test utterances in {trainer.test_seconds:.2f} s, "
+        f"{report['test_ms_per_utterance']:.2f} ms per utterance (batches of 1, max_frames "
+        f"{task.cfg['max_frames']}, no writes); frames {frames}; on {smi}")
+    if not (len(outputs) == n_test and min(frames) > 0 and ok):
+        raise AssertionError("fs2 --infer mels are not finite, empty, all equal or nonzero past their frames")
+    del trainer, task
+    torch.cuda.empty_cache()
+    return report, {"fs2_train": train_launches, "fs2_profile": profile_launches,
+                    "fs2_resume": resume_launches, "fs2_infer": infer_launches}, cfg, big
+
+
+def fs2_step_gap(task, batches, big, gen, smi, n=3):
+    """Phase 13a: what the trainer's step ms holds beyond a profiled step.
+    The largest batch's step, each synchronized and timed as the trainer
+    times it (the transfer and the step), n times each:
+    - on_card: the batch already on the card, as profiled (no transfer);
+    - to_device: the transfer alone;
+    - with_to_device: the transfer and the step;
+    - after_other_shape: right after a step of another shape;
+    - after_smallest: right after a step of the smallest batch, which ends
+      each epoch of the trainer;
+    - after_idle: after the card idled 30 ms, as through the host wait at
+      an epoch's start;
+    - during_prefetch: while the trainer's prefetch thread collates an
+      epoch (started just before);
+    - epoch_start: as the trainer starts an epoch, a new prefetch thread
+      and its first batch (the largest, in this corpus's order) taken from
+      it, then that batch's step.
+    With the segments the caching allocator took from cudaMalloc in each."""
+    from dicttts_tpu_torch.utils.prefetch import prefetch_iterator
+
+    def segments():
+        return torch.cuda.memory_stats().get("segment.all.allocated", 0)
+
+    host = {k: v for k, v in big.items() if k != "_meta"}
+    dev = task.to_device(host)
+    others = [b for b in batches if b["mels"].shape[:2] != big["mels"].shape[:2]] or [big]
+    smallest = min(batches, key=lambda b: b["mels"].shape[0] * b["mels"].shape[1])
+
+    def step(batch=host):
+        return task.train_step(task.to_device(batch), gen)
+
+    def run(timed, prep=lambda i: None):
+        ms, segs = [], []
+        for i in range(n):
+            prep(i)
+            torch.cuda.synchronize()
+            s0 = segments()
+            ms += timed_ms(timed)
+            segs.append(segments() - s0)
+        return {"ms": ms, "cuda_mallocs": segs}
+
+    out = {"on_card": run(lambda: task.train_step(dev, gen)), "to_device": run(lambda: task.to_device(host)),
+           "with_to_device": run(step),
+           "after_other_shape": run(step, lambda i: step(others[i % len(others)])),
+           "after_smallest": run(step, lambda i: step(smallest)),
+           "after_idle": run(step, lambda i: (torch.cuda.synchronize(), time.sleep(0.03)))}
+    del dev
+    for name in ("during_prefetch", "epoch_start"):
+        ms, segs, shapes = [], [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            with contextlib.closing(prefetch_iterator(task.train_batches(), depth=8)) as epoch:
+                batch = host if name == "during_prefetch" else {k: v for k, v in next(epoch).items() if k != "_meta"}
+                shapes.append("x".join(map(str, batch["mels"].shape[:2])))
+                s0 = segments()
+                ms += timed_ms(lambda: step(batch))
+                segs.append(segments() - s0)
+                for _b in epoch:  # let the thread finish its epoch before the next one starts
+                    pass
+        out[name] = {"ms": ms, "cuda_mallocs": segs, "shapes": shapes}
+    shape = "x".join(map(str, big["mels"].shape[:2]))
+    say(f"fs2 {shape} step, synchronized, ms (cudaMalloc segments): " + "; ".join(
+        f"{k} {[round(x, 1) for x in v['ms']]} ({v['cuda_mallocs']})" for k, v in out.items())
+        + f"; epoch_start stepped {out['epoch_start']['shapes']}; on {smi}")
+    return out
+
+
+def timed_ms(fn, n=1):
+    """Host ms of ``fn()`` with the card synchronized around it, over n calls."""
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) * 1e3)
+    return out
+
+
+def fs2_registry(cfg, batch, smi):
+    """Phase 13b: each other encoder and decoder of FastSpeech2's registry
+    at the recipe's width on one corpus batch: a train step (the first,
+    then one timed) and an inference of its first row, both finite."""
+    from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
+
+    report = {}
+    shape = tuple(batch["mels"].shape[:2])
+    for enc, dec in FS2_OTHER_ENTRIES:
+        task = FastSpeech2Task({**cfg, "encoder_type": enc, "decoder_type": dec}, device="cuda")
+        task.build_state(SEED)
+        dev = task.to_device(batch)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+        steps = []
+        first = timed_ms(lambda: steps.append(task.train_step(dev, gen)))[0]
+        step = timed_ms(lambda: steps.append(task.train_step(dev, gen)))[0]
+        outs = []
+        infer = timed_ms(lambda: outs.append(task.test_step({"txt_tokens": dev["txt_tokens"][:1]})), 2)
+        n = int((outs[-1]["mel2ph"] > 0).sum())
+        finite = (all(bool(torch.isfinite(v)) for m in steps for v in m.values())
+                  and bool(torch.isfinite(outs[-1]["mel_out"]).all())
+                  and all(bool(torch.isfinite(p).all()) for p in task.model.parameters()))
+        n_params = sum(p.numel() for p in task.model.parameters()) / 1e6
+        say(f"fs2 {enc} + {dec} ({n_params:.2f}M parameters) at {shape[0]}x{shape[1]}: first step "
+            f"{first:.1f} ms, step {step:.1f} ms, inference of one row {infer[-1]:.1f} ms ({n} frames); "
+            f"loss {float(steps[-1]['total_loss']):.2f}; on {smi}")
+        if not finite or n == 0:
+            raise AssertionError(f"fs2 {enc} + {dec}: a value is not finite, or no frame was predicted")
+        report[f"{enc}+{dec}"] = {"first_ms": first, "step_ms": step, "infer_ms": infer[-1], "frames": n}
+        del task, dev, steps, outs
+    torch.cuda.empty_cache()
+    return report
+
+
+def transformer_tts_phase(batch, n_vocab, smi):
+    """Phase 13c: TransformerTTS at its default widths on a corpus batch: a
+    teacher-forced train step (L1 mel + stop BCE, AdamW), a cached decode
+    of TTS_DECODE_FRAMES frames at B = 1 and 16, and the decode against the
+    teacher-forced pass on the frames it produced (prenet dropout 0)."""
+    from dicttts_tpu_torch.models.transformer_tts import TransformerTTS
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED)
+        model = TransformerTTS(vocab_size=n_vocab).cuda()
+    opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.98))
+    tokens = torch.as_tensor(batch["txt_tokens"], device="cuda")
+    mels = torch.as_tensor(batch["mels"], device="cuda").float()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+    nonpad = (mels.abs().sum(-1) > 0).float()
+    last = (torch.arange(mels.shape[1], device="cuda")[None] >= nonpad.sum(1, keepdim=True) - 1).float()
+    losses = []
+
+    def step():
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        out = model(tokens, mels, generator=gen)
+        l1 = ((out["mel_out"] - mels).abs().mean(-1) * nonpad).sum() / nonpad.sum()
+        stop = torch.nn.functional.binary_cross_entropy_with_logits(out["stop_logits"], last)
+        (l1 + stop).backward()
+        opt.step()
+        losses.append(float((l1 + stop).detach()))
+
+    train_ms = timed_ms(step, 4)
+    model.eval()
+    decode = {}
+    for B in (1, 16):
+        model.infer(tokens[:B], 8, generator=gen)  # warm-up: this batch size's first kernels
+        outs = []
+        ms = timed_ms(lambda: outs.append(model.infer(tokens[:B], TTS_DECODE_FRAMES, generator=gen)))[0]
+        decode[B] = {"ms": ms, "ms_per_frame": ms / TTS_DECODE_FRAMES,
+                     "stops": outs[0]["out_mask"].sum(1).tolist()[:4]}
+        if not bool(torch.isfinite(outs[0]["mel_raw"]).all()):
+            raise AssertionError(f"TransformerTTS decode at B={B} is not finite")
+    model.prenet_dropout = 0.0
+    dec = model.infer(tokens[:2], TTS_DECODE_FRAMES)
+    with torch.no_grad():
+        tf = model(tokens[:2], dec["mel_raw"])
+    err = float((tf["mel_out"] - dec["mel_raw"]).abs().max())
+    err_stop = float((tf["stop_logits"] - dec["stop_logits"]).abs().max())
+    n_params = sum(p.numel() for p in model.parameters()) / 1e6
+    say(f"TransformerTTS (hidden {model.hidden_size}, {len(model.encoder.attn)} + {len(model.dec_layers)} "
+        f"layers, {n_params:.2f}M parameters) at {tokens.shape[0]} x "
+        f"{mels.shape[1]} frames: train step ms {' '.join(f'{x:.1f}' for x in train_ms)} (the first is the "
+        f"shape's first), losses {losses[0]:.3f} -> {losses[-1]:.3f}; cached decode of {TTS_DECODE_FRAMES} "
+        f"frames: B=1 {decode[1]['ms']:.1f} ms ({decode[1]['ms_per_frame']:.3f} ms a frame), B=16 "
+        f"{decode[16]['ms']:.1f} ms ({decode[16]['ms_per_frame']:.3f} ms a frame); decode vs teacher-forced "
+        f"on its own frames: max |d mel| {err:.2e}, |d stop| {err_stop:.2e} (tol 1e-3); on {smi}")
+    if not all(math.isfinite(x) for x in losses) or max(err, err_stop) > 1e-3:
+        raise AssertionError("TransformerTTS: a non-finite loss, or the decode disagrees with its teacher-forced pass")
+    del model, opt
+    torch.cuda.empty_cache()
+    return {"train_ms": train_ms, "decode": decode, "decode_vs_teacher_forced": [err, err_stop]}
+
+
+def ge2e_card_vs_cpu(smi):
+    """Phase 13d: the GE2E encoder (Resemblyzer's widths, a seeded
+    state_dict) embeds one 7 s utterance on the card and on the CPU."""
+    from dicttts_tpu_torch.models.speaker_encoder import GE2ESpeakerEncoder, embed_utterance
+
+    rng = np.random.RandomState(SEED + 16)
+    sd = {}
+    for k in range(3):
+        sd[f"lstm.weight_ih_l{k}"] = rng.randn(1024, 40 if k == 0 else 256) * 0.06
+        sd[f"lstm.weight_hh_l{k}"] = rng.randn(1024, 256) * 0.06
+        sd[f"lstm.bias_ih_l{k}"] = rng.randn(1024) * 0.05
+        sd[f"lstm.bias_hh_l{k}"] = rng.randn(1024) * 0.05
+    sd["linear.weight"], sd["linear.bias"] = rng.randn(256, 256) * 0.06, rng.randn(256) * 0.05
+    mel = np.abs(rng.randn(700, 40)).astype(np.float32)
+    cpu = GE2ESpeakerEncoder.from_state_dict(sd).eval()
+    card = GE2ESpeakerEncoder.from_state_dict(sd).cuda().eval()
+    embed_utterance(card, mel)  # warm-up
+    got = []
+    ms = timed_ms(lambda: got.append(embed_utterance(card, mel)), 3)
+    want = embed_utterance(cpu, mel)
+    err = float(np.abs(got[-1] - want).max())
+    say(f"GE2E embed_utterance of 700 frames (8 windows of 160) on the card in {min(ms):.2f}-{max(ms):.2f} ms; "
+        f"card vs CPU max |d| {err:.2e} (tol 1e-4) on a unit-norm 256-d embedding; on {smi}")
+    if err > 1e-4 or not np.isfinite(got[-1]).all():
+        raise AssertionError("the GE2E embeddings of the card and the CPU disagree")
+    return {"ms": ms, "max_abs_err": err}
+
+
+def fs_batch(rng, B, T_txt, T, n_vocab):
+    """A phone-level batch in the collater's format ('fs'): phones padded,
+    random durations, mels zero past each row's frames, f0 in Hz through
+    the unvoiced frames (uv 1), the last row 3/4 of the others' length."""
+    lengths = [T] * (B - 1) + [3 * T // 4]
+    tokens, mel2ph = np.zeros((B, T_txt), np.int32), np.zeros((B, T), np.int32)
+    for b, n_fr in enumerate(lengths):
+        n_ph = T_txt - 2 * b
+        tokens[b, :n_ph] = rng.randint(1, n_vocab, n_ph)
+        cuts = np.sort(rng.choice(np.arange(1, n_fr), n_ph - 1, replace=False))
+        mel2ph[b, :n_fr] = np.searchsorted(cuts, np.arange(n_fr), side="right") + 1
+    real = mel2ph > 0
+    return {"txt_tokens": tokens, "mel2ph": mel2ph,
+            "mels": ((rng.randn(B, T, 80) * 0.8 - 4.5) * real[:, :, None]).astype(np.float32),
+            "f0": (rng.uniform(100, 300, (B, T)) * real).astype(np.float32),
+            "uv": ((rng.rand(B, T) < 0.3) | ~real).astype(np.float32),
+            "mel_lengths": np.array(lengths, np.int32)}
+
+
+FS2_GRAD_GROUPS = {"encoder": ("encoder",), "decoder and mel head": ("decoder", "mel_head"),
+                   "predictors": ("dur_predictor", "pitch_predictor", "pitch_embed")}
+
+
+def fs2_card_vs_cpu(smi):
+    """Phase 13e: one fs2 step on the card and on the CPU from the same
+    weights and batch, dropout 0 (the pitch predictor's fixed 0.1 too), at
+    B=2 and FS2_CHECK_CFG's small widths: every loss, the global gradient
+    norm, and each parameter's gradient norm (the worst leaf, its norm
+    floored at 1e-6 of the largest leaf's; the global norm is almost all f0
+    gradient, so it alone cannot see a wrong backward elsewhere). The
+    gradients are read after the step's clip, which scales each side by
+    its own global norm."""
+    from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
+
+    batch = fs_batch(np.random.RandomState(SEED + 17), 2, 24, 128, FS2_CHECK_CFG["n_vocab"])
+    card, cpu = FastSpeech2Task(FS2_CHECK_CFG, device="cuda"), FastSpeech2Task(FS2_CHECK_CFG, device="cpu")
+    card.build_state(SEED + 18)
+    cpu.build_state(SEED + 18)
+    cpu.model.load_state_dict(card.model.state_dict())
+    out, leaf = {}, {}
+    for name, task in (("card", card), ("cpu", cpu)):
+        task.model.pitch_predictor.dropout_rate = 0.0
+        out[name] = {k: float(v) for k, v in task.train_step(task.to_device(batch)).items()}
+        leaf[name] = {n: float(torch.linalg.vector_norm(p.grad)) for n, p in task.model.named_parameters()}
+    rtol, worst = 2e-3, 0.0  # TF32 off; cuDNN and the CPU sum in different orders
+    for k, ref in out["cpu"].items():
+        rel = abs(out["card"][k] - ref) / max(abs(ref), 1e-6)
+        worst = max(worst, rel)
+        say(f"  fs2 {k}: card {out['card'][k]:.6f} cpu {ref:.6f} rel {rel:.2e}")
+    floor = 1e-6 * max(leaf["cpu"].values())
+    rel_leaf = {n: abs(leaf["card"][n] - ref) / max(ref, floor) for n, ref in leaf["cpu"].items()}
+    worst_leaf = max(rel_leaf, key=rel_leaf.get)
+    for group, prefixes in FS2_GRAD_GROUPS.items():
+        names = [n for n in leaf["cpu"] if n.split(".")[0] in prefixes]
+        g = {side: float(np.sqrt(sum(leaf[side][n] ** 2 for n in names))) for side in leaf}
+        say(f"  fs2 clipped gradient norm of the {group} ({len(names)} leaves): card {g['card']:.6e} "
+            f"cpu {g['cpu']:.6e}; its worst leaf rel {max(rel_leaf[n] for n in names):.2e}")
+    if set().union(*FS2_GRAD_GROUPS.values()) != {n.split(".")[0] for n in leaf["cpu"]}:
+        raise AssertionError("a FastSpeech2 parameter lies outside the gradient groups")
+    say(f"card vs CPU: worst relative difference {worst:.2e} over the fs2 step's losses and global gradient "
+        f"norm, {rel_leaf[worst_leaf]:.2e} over the {len(rel_leaf)} parameters' gradient norms "
+        f"({worst_leaf}), tol {rtol:.0e}; on {smi}")
+    if set(out["card"]) != set(out["cpu"]) or set(leaf["card"]) != set(leaf["cpu"]) \
+            or max(worst, rel_leaf[worst_leaf]) > rtol:
+        raise AssertionError("card and CPU FastSpeech2 steps disagree")
+    return {"losses_rel": worst, "worst_leaf_rel": rel_leaf[worst_leaf], "worst_leaf": worst_leaf}
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)  # never outlive the run's limit
     say("phase 0: device")
@@ -2472,6 +2889,44 @@ def main() -> int:
         if any(n != (0, 0, 0) for n in by_run.values()):
             raise AssertionError(f"phase 12 launched a bank or S2PA kernel: {by_run}")
     say(f"phase 12 done in {time.time() - t12:.1f} s, at {time.time() - T_START:.1f} s")
+
+    t13 = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_fastspeech2_") as root:
+        binary = os.path.join(root, "binary")
+        os.makedirs(binary)
+        fs_corpus = link_corpus(binary, np.random.RandomState(SEED))
+        say(f"phase 13a: FastSpeech2 through run.main on the {fs_corpus} corpus, {FS2_CONFIG}")
+        fs2_report, by_run, fs2_cfg, big = fastspeech2_recipe(root, binary, smi)
+        say("phase 13a report " + json.dumps(fs2_report))
+        say(f"phase 13b: the other registry entries at the recipe's width on one {big['mels'].shape[0]}x"
+            f"{big['mels'].shape[1]} batch")
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        fs2_report["registry"] = fs2_registry(fs2_cfg, big, smi)
+        torch.cuda.synchronize()
+        by_run["fs2_registry"] = launch_counts()
+        say("phase 13c: TransformerTTS at its default widths, teacher-forced step and cached decode")
+        zero_launch_counts()
+        fs2_report["transformer_tts"] = transformer_tts_phase(big, fs2_cfg["n_vocab"], smi)
+        torch.cuda.synchronize()
+        by_run["transformer_tts"] = launch_counts()
+        say("phase 13d: GE2E embed_utterance on the card and on the CPU")
+        zero_launch_counts()
+        fs2_report["ge2e"] = ge2e_card_vs_cpu(smi)
+        torch.cuda.synchronize()
+        by_run["ge2e"] = launch_counts()
+        say("phase 13e: one fs2 step on the card and on the CPU")
+        zero_launch_counts()
+        fs2_report["card_vs_cpu"] = fs2_card_vs_cpu(smi)
+        torch.cuda.synchronize()
+        by_run["fs2_card_vs_cpu"] = launch_counts()
+        recipe_launches["fastspeech2"] = tuple(map(sum, zip(*by_run.values())))
+        say(f"phase 13 launches (K1, K2, K3) by run {by_run}, in all {recipe_launches['fastspeech2']}")
+        if any(n != (0, 0, 0) for n in by_run.values()):
+            raise AssertionError(f"phase 13 launched a bank or S2PA kernel: {by_run}")
+        say("phase 13 report " + json.dumps({k: fs2_report[k] for k in ("registry", "transformer_tts", "ge2e",
+                                                                        "card_vs_cpu")}))
+    say(f"phase 13 done in {time.time() - t13:.1f} s, at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),

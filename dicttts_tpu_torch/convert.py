@@ -15,9 +15,12 @@ the flax tree exactly. Layout rules:
 - Conv2d kernel [kh, kw, in, out] (HWIO) -> Conv2d weight [out, in, kh, kw];
 - Embedding and LayerNorm parameters are unchanged.
 
-The JAX package has no converter for ``FFTBlocks``, the post-net ``Glow``
-or PortaSpeech's word-to-frame projections: ``fft_blocks_state``,
-``glow_state`` and ``portaspeech_state`` name them directly; PortaSpeech's
+The JAX package has no converter for ``FFTBlocks``, the post-net ``Glow``,
+PortaSpeech's word-to-frame projections, FastSpeech2 or TransformerTTS:
+``fft_blocks_state``, ``glow_state``, ``portaspeech_state``,
+``fastspeech2_state`` and ``transformer_tts_state`` name them directly
+(flax's GRU and LSTM cells into torch's fused ``nn.GRU`` / ``nn.LSTM``,
+the biases flax lacks set to 0: ``gru_state``, ``lstm_state``); PortaSpeech's
 phone encoder, duration predictor and FVAE keep the names its
 ``convert_rel_encoder``, ``convert_duration_predictor`` and
 ``convert_fvae`` read. The discriminators have no converter in the JAX package;
@@ -36,6 +39,7 @@ from dicttts_tpu_torch.models.dict_encoder import DictEncoder, S2PAAttention
 from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.models.discriminator import JCUDiscriminator, MultiWindowDiscriminator
 from dicttts_tpu_torch.models.duration import DurationPredictor
+from dicttts_tpu_torch.models.fastspeech2 import FastSpeech2
 from dicttts_tpu_torch.models.fft_blocks import FFTBlocks
 from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.fvae import FVAE
@@ -43,6 +47,8 @@ from dicttts_tpu_torch.models.hifigan import HifiGanDiscriminator, HifiGanGenera
 from dicttts_tpu_torch.models.layers import ConvReluNorm, RelTransformerEncoder, RelTransformerLayers
 from dicttts_tpu_torch.models.portaspeech import PortaSpeech
 from dicttts_tpu_torch.models.post_glow import Glow
+from dicttts_tpu_torch.models.tacotron import BertEncoderScaffold
+from dicttts_tpu_torch.models.transformer_tts import TransformerTTS
 from dicttts_tpu_torch.models.wavenet import WN
 
 
@@ -246,6 +252,181 @@ def portaspeech_state(p: dict, module: PortaSpeech) -> dict:
     return out
 
 
+def _linear(out: dict, name: str, p: dict) -> None:
+    out[f"{name}.weight"] = _dense(p["kernel"])
+    if "bias" in p:
+        out[f"{name}.bias"] = p["bias"]
+
+
+def gru_state(fwd: dict, bwd: dict, prefix: str) -> dict:
+    """flax ``GRUCell`` pair (forward, reversed) -> a bidirectional
+    ``nn.GRU``: gates (r, z, n); b_hr = b_hz = 0, b_hn = hn.bias."""
+    out: dict = {}
+    for suffix, c in (("", fwd), ("_reverse", bwd)):
+        H = np.shape(c["hn"]["bias"])[0]
+        out[f"{prefix}weight_ih_l0{suffix}"] = np.concatenate([_dense(c[g]["kernel"]) for g in ("ir", "iz", "in")])
+        out[f"{prefix}bias_ih_l0{suffix}"] = np.concatenate([c[g]["bias"] for g in ("ir", "iz", "in")])
+        out[f"{prefix}weight_hh_l0{suffix}"] = np.concatenate([_dense(c[g]["kernel"]) for g in ("hr", "hz", "hn")])
+        out[f"{prefix}bias_hh_l0{suffix}"] = np.concatenate([np.zeros(2 * H, np.float32), c["hn"]["bias"]])
+    return out
+
+
+def lstm_state(fwd: dict, bwd: dict, prefix: str) -> dict:
+    """flax ``OptimizedLSTMCell`` pair -> a bidirectional ``nn.LSTM``:
+    gates (i, f, g, o); b_ih = 0, b_hh = the h paths' biases."""
+    out: dict = {}
+    for suffix, c in (("", fwd), ("_reverse", bwd)):
+        gates = ("i", "f", "g", "o")
+        H = np.shape(c["hi"]["bias"])[0]
+        out[f"{prefix}weight_ih_l0{suffix}"] = np.concatenate([_dense(c[f"i{g}"]["kernel"]) for g in gates])
+        out[f"{prefix}bias_ih_l0{suffix}"] = np.zeros(4 * H, np.float32)
+        out[f"{prefix}weight_hh_l0{suffix}"] = np.concatenate([_dense(c[f"h{g}"]["kernel"]) for g in gates])
+        out[f"{prefix}bias_hh_l0{suffix}"] = np.concatenate([c[f"h{g}"]["bias"] for g in gates])
+    return out
+
+
+def _norm_conv(out: dict, name: str, p: dict) -> None:
+    out[f"{name}.conv.weight"] = _conv(p["Conv_0"]["kernel"])
+    _ln(out, f"{name}.norm", p["LayerNorm_0"])
+
+
+def conformer_state(p: dict, n_layers: int, prefix: str = "") -> dict:
+    """ConformerLayers: {'block_<i>': {ConformerFF_0/1, LayerNorm_0/1,
+    RelMultiHeadAttention_0, ConformerConvModule_0}}."""
+    out: dict = {}
+    for i in range(n_layers):
+        b, pre = p[f"block_{i}"], f"{prefix}blocks.{i}."
+        for ff, name in (("ConformerFF_0", "ff1"), ("ConformerFF_1", "ff2")):
+            _ln(out, f"{pre}{name}.ln", b[ff]["LayerNorm_0"])
+            _linear(out, f"{pre}{name}.fc1", b[ff]["Dense_0"])
+            _linear(out, f"{pre}{name}.fc2", b[ff]["Dense_1"])
+        _ln(out, f"{pre}ln_attn", b["LayerNorm_0"])
+        attn_state(out, f"{pre}attn.", b["RelMultiHeadAttention_0"])
+        c = b["ConformerConvModule_0"]
+        _ln(out, f"{pre}conv_module.ln1", c["LayerNorm_0"])
+        _linear(out, f"{pre}conv_module.pw1", c["Dense_0"])
+        _conv_entry(out, f"{pre}conv_module.depthwise", c["depthwise"])
+        _ln(out, f"{pre}conv_module.ln2", c["LayerNorm_1"])
+        _linear(out, f"{pre}conv_module.pw2", c["Dense_1"])
+        _ln(out, f"{pre}ln_out", b["LayerNorm_1"])
+    return out
+
+
+def _fs2_encoder_state(p: dict, module: FastSpeech2) -> dict:
+    kind, enc = module.encoder_type, module.encoder
+    if kind == "rel_fft":
+        return rel_encoder_state(p, enc, "encoder.")
+    out = {"encoder.embed.weight": p["Embed_0"]["embedding"]}
+    if kind == "fft":
+        out.update(fft_blocks_state(p["FFTBlocks_0"], enc.layers, "encoder.layers."))
+    elif kind == "conformer":
+        out.update(conformer_state(p["ConformerLayers_0"], len(enc.layers.blocks), "encoder.layers."))
+    elif kind == "tacotron":
+        _linear(out, "encoder.prenet.fc1", p["PreNet_0"]["Dense_0"])
+        _linear(out, "encoder.prenet.fc2", p["PreNet_0"]["Dense_1"])
+        c, cbhg = p["CBHG_0"], enc.cbhg
+        for k in range(1, len(cbhg.bank) + 1):
+            _norm_conv(out, f"encoder.cbhg.bank.{k - 1}", c[f"bank_{k}"])
+        _norm_conv(out, "encoder.cbhg.proj1", c["proj1"])
+        _norm_conv(out, "encoder.cbhg.proj2", c["proj2"])
+        if cbhg.pre_highway is not None:
+            _linear(out, "encoder.cbhg.pre_highway", c["pre_highway"])
+        for i in range(len(cbhg.highways)):
+            _linear(out, f"encoder.cbhg.highways.{i}.W1", c[f"highway_{i}"]["W1"])
+            _linear(out, f"encoder.cbhg.highways.{i}.W2", c[f"highway_{i}"]["W2"])
+        g = c["BiGRU_0"]
+        out.update(gru_state(g["GRUCell_0"], g["GRUCell_1"], "encoder.cbhg.rnn.rnn."))
+        _linear(out, "encoder.proj", p["Dense_0"])
+    elif kind == "tacotron2":
+        for i in range(len(enc.convs)):
+            _norm_conv(out, f"encoder.convs.{i}", p[f"conv_{i}"])
+        r = p["BiLSTM_0"]
+        out.update(lstm_state(r["OptimizedLSTMCell_0"], r["OptimizedLSTMCell_1"], "encoder.rnn.rnn."))
+    else:
+        raise TypeError(f"no flax mapping for FastSpeech2 encoder {kind!r}")
+    return out
+
+
+def _fs2_decoder_state(p: dict, module: FastSpeech2) -> dict:
+    kind, dec = module.decoder_type, module.decoder
+    out: dict = {}
+    if kind == "fft":
+        out.update(fft_blocks_state(p["FFTBlocks_0"], dec, "decoder."))
+    elif kind == "conv":
+        for i in range(len(dec.convs)):
+            _conv_entry(out, f"decoder.convs.{i}", p[f"conv_{i}"])
+            _ln(out, f"decoder.norms.{i}", p[f"ln_{i}"])
+    elif kind == "wn":
+        out.update(wn_state(p["WN_0"], dec.wn.n_layers, "decoder.wn."))
+    elif kind == "conformer":
+        out.update(conformer_state(p["ConformerLayers_0"], len(dec.blocks), "decoder."))
+    elif kind == "rnn":
+        _conv_entry(out, "decoder.conv1", p["Conv_0"])
+        _conv_entry(out, "decoder.conv2", p["Conv_1"])
+        _ln(out, "decoder.norm", p["LayerNorm_0"])
+        r = p["BiLSTM_0"]
+        out.update(lstm_state(r["OptimizedLSTMCell_0"], r["OptimizedLSTMCell_1"], "decoder.rnn.rnn."))
+        _conv_entry(out, "decoder.conv_out", p["Conv_2"])
+    else:
+        raise TypeError(f"no flax mapping for FastSpeech2 decoder {kind!r}")
+    return out
+
+
+def _predictor_state(out: dict, prefix: str, p: dict, n_layers: int) -> None:
+    for i in range(n_layers):
+        _conv_entry(out, f"{prefix}convs.{i}", p[f"conv_{i}"])
+        _ln(out, f"{prefix}norms.{i}", p[f"ln_{i}"])
+    _linear(out, f"{prefix}out", p["out"])
+
+
+def fastspeech2_state(p: dict, module: FastSpeech2) -> dict:
+    """FastSpeech2 with any registry entry, its predictors, embeddings,
+    RefEncoder and speaker embedding."""
+    out = _fs2_encoder_state(p["encoder"], module)
+    out.update(_fs2_decoder_state(p["decoder"], module))
+    _linear(out, "mel_head", p["mel_head"])
+    out.update(duration_state(p["dur_predictor"], len(module.dur_predictor.conv), "dur_predictor."))
+    if module.use_pitch_embed:
+        out["pitch_embed.weight"] = p["pitch_embed"]["embedding"]
+        _predictor_state(out, "pitch_predictor.", p["pitch_predictor"],
+                         len(module.pitch_predictor.convs))
+    if module.use_energy_embed:
+        out["energy_embed.weight"] = p["energy_embed"]["embedding"]
+        _predictor_state(out, "energy_predictor.", p["energy_predictor"]["PitchPredictor_0"],
+                         len(module.energy_predictor.convs))
+    if module.use_ref_enc:
+        r = p["ref_encoder"]
+        for i in range(len(module.ref_encoder.convs)):
+            _conv_entry(out, f"ref_encoder.convs.{i}", r[f"conv_{i}"])
+            _ln(out, f"ref_encoder.norms.{i}", r[f"ln_{i}"])
+        _linear(out, "ref_encoder.proj", r["proj"])
+    if module.num_spk > 0:
+        out["spk_embed_proj.weight"] = p["spk_embed_proj"]["embedding"]
+    return out
+
+
+def transformer_tts_state(p: dict, module: TransformerTTS) -> dict:
+    """TransformerTTS: the flax module's names, layer i's under
+    ``dec_layers.<i>``."""
+    out = {"embed.weight": p["embed"]["embedding"], "dec_pos_alpha": p["dec_pos_alpha"]}
+    out.update(fft_blocks_state(p["encoder"], module.encoder, "encoder."))
+    for name in ("prenet_fc1", "prenet_fc2", "prenet_fc3", "project_out"):
+        _linear(out, name, p[name])
+    for i in range(len(module.dec_layers)):
+        d, pre = p[f"dec_layer_{i}"], f"dec_layers.{i}."
+        for ln in ("ln1", "ln2", "ln3"):
+            _ln(out, f"{pre}{ln}", d[ln])
+        for attn in ("self_attn", "cross_attn"):
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                _linear(out, f"{pre}{attn}.{proj}", d[attn][proj])
+        _conv_entry(out, f"{pre}ffn_conv", d["ffn_conv"])
+        _linear(out, f"{pre}ffn_out", d["ffn_out"])
+    _ln(out, "dec_ln", p["dec_ln"])
+    if module.num_spk > 0:
+        out["spk_embed.weight"] = p["spk_embed"]["embedding"]
+    return out
+
+
 def hifigan_state(p: dict, module: HifiGanGenerator) -> dict:
     out: dict = {}
     _conv_entry(out, "conv_pre", p["conv_pre"])
@@ -321,6 +502,14 @@ def jax_params_to_state(module: nn.Module, params: dict) -> dict:
         return dict_tts_state(params, module)
     if isinstance(module, PortaSpeech):
         return portaspeech_state(params, module)
+    if isinstance(module, FastSpeech2):
+        return fastspeech2_state(params, module)
+    if isinstance(module, TransformerTTS):
+        return transformer_tts_state(params, module)
+    if isinstance(module, BertEncoderScaffold):
+        out = fft_blocks_state(params["FFTBlocks_0"], module.blocks, "blocks.")
+        _linear(out, "out", params["Dense_0"])
+        return out
     if isinstance(module, Glow):
         return glow_state(params, module)
     if isinstance(module, RelTransformerEncoder):

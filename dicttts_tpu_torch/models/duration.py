@@ -1,7 +1,8 @@
-"""Word-level duration predictor (log domain) and its frame rounding.
+"""Duration predictor (log domain) and its frame rounding.
 
-Port of ``dicttts_tpu/models/duration.py`` with the PortaSpeech Softplus
-head. Parameter names follow the reference's per-layer ``Sequential``
+Port of ``dicttts_tpu/models/duration.py``: the PortaSpeech Softplus head
+(``softplus_out``, the default here) or FastSpeech2's plain linear one.
+Parameter names follow the reference's per-layer ``Sequential``
 (``conv.{i}.1`` is the conv, ``conv.{i}.3`` the LayerNorm) and its
 ``linear.0`` head, which ``convert_duration_predictor`` reads.
 
@@ -21,13 +22,14 @@ from dicttts_tpu_torch.ops.amp import f32_island
 
 class DurationPredictor(nn.Module):
     """n_layers of [conv-k SAME, relu, LayerNorm(1e-5), dropout], masked
-    after each, then Linear -> Softplus, masked. Input [B, T, C] -> [B, T]
-    log-duration."""
+    after each, then Linear (-> Softplus with ``softplus_out``), masked.
+    Input [B, T, C] -> [B, T] log-duration."""
 
     def __init__(self, in_channels: int, n_chans: int = 128, n_layers: int = 3,
-                 kernel_size: int = 5, dropout_rate: float = 0.0):
+                 kernel_size: int = 5, dropout_rate: float = 0.0, softplus_out: bool = True):
         super().__init__()
         self.dropout_rate = dropout_rate
+        self.softplus_out = softplus_out
         layers = []
         for i in range(n_layers):
             # the Sequential slots 0/2/4 (pad, relu, dropout) hold no
@@ -51,7 +53,8 @@ class DurationPredictor(nn.Module):
                 x = torch.relu(conv1d_tc(x, layer[1]))
                 x = dropout(layer[3](x), self.dropout_rate, self.training, generator)
                 x = x * nonpadding[:, :, None]
-            return F.softplus(self.linear(x)[..., 0]) * nonpadding
+            x = self.linear(x)[..., 0]
+            return (F.softplus(x) if self.softplus_out else x) * nonpadding
 
 
 def out2dur(log_dur: torch.Tensor, offset: float = 1.0) -> torch.Tensor:

@@ -4,9 +4,9 @@ Port of ``dicttts_tpu/run.py``: resolve the config chain, derive the
 vocabulary sizes from the binarized corpus, build the data provider (the
 three splits' batches, or HiFi-GAN's ``VocoderDataset`` crops), the task
 named by ``task_cls`` (``DictTTSTask``, ``PortaSpeechAdvTask``,
-``PortaSpeechFlowTask`` or ``HifiGanTask``) and the trainer, then train, or
-with ``--infer`` run the test loop (Dict-TTS writes ``<work_dir>/generated/``
-and its ``meta.csv``).
+``PortaSpeechFlowTask``, ``FastSpeech2Task`` or ``HifiGanTask``) and the
+trainer, then train, or with ``--infer`` run the test loop (Dict-TTS writes
+``<work_dir>/generated/`` and its ``meta.csv``).
 
     python -m dicttts_tpu_torch.run \\
         --config dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml \\
@@ -14,6 +14,8 @@ and its ``meta.csv``).
     python -m dicttts_tpu_torch.run \\
         --config dicttts_tpu_torch/configs/datasets/biaobei/ps_flow.yaml \\
         --exp_name ps_flow_biaobei --hparams "use_post_glow=True"
+    python -m dicttts_tpu_torch.run \\
+        --config dicttts_tpu_torch/configs/datasets/biaobei/fs2.yaml --exp_name fs2_biaobei
 
 ``--device`` defaults to the card and raises without one; ``cpu`` runs the
 kernels' plain versions (for tests). Not ported: ``--multihost`` and the
@@ -109,7 +111,8 @@ def task_class(task_path: str):
         raise NotImplementedError(
             f"task {task_path} is not ported to {PACKAGE[:-1]} yet (ROADMAP Queue 1); the port "
             "trains the tasks of dicttts_tpu_torch.train.tasks: dict_tts.DictTTSTask, "
-            "ps_adv.PortaSpeechAdvTask, ps_flow.PortaSpeechFlowTask and hifigan.HifiGanTask")
+            "ps_adv.PortaSpeechAdvTask, ps_flow.PortaSpeechFlowTask, fs2.FastSpeech2Task and "
+            "hifigan.HifiGanTask")
     mod, cls_name = task_path.rsplit(".", 1)
     return getattr(importlib.import_module(mod), cls_name)
 

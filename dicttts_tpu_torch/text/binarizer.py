@@ -16,6 +16,10 @@ Port of ``dicttts_tpu/text/binarizer.py``. Two stages:
   ``binarize_workers`` spawned processes while the device computes; write
   ``{train,valid,test}.{data,idx}``, the lengths and f0 statistics, and the
   dictionary bank ``dict_embed.{data,idx}`` with ``pinyin_encoder.pkl``.
+  With ``with_spk_embed`` each item also gets ``spk_embed``
+  (``ops/speaker.speaker_embed``: the GE2E encoder on the binarizer's
+  device when ``spk_encoder_ckpt`` names a Resemblyzer checkpoint, else
+  the spectral statistics).
 
 The bank's gloss features come from a RoFormer LM when ``lm_model`` names
 a local directory (mean of the input embedding and the first 8 hidden
@@ -251,10 +255,6 @@ class ZhBinarizer:
     bank, the bank's bytes, the split sizes."""
 
     def __init__(self, cfg: dict, device="cuda"):
-        if cfg.get("with_spk_embed"):
-            raise NotImplementedError(
-                "with_spk_embed needs the speaker encoder (ops/speaker.py), which is not ported "
-                "yet (ROADMAP Queue 1 item 6)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.zh_dict = load_dict(cfg.get("dict_path", DEFAULT_DICT))
@@ -324,6 +324,10 @@ class ZhBinarizer:
             "len": T,
             "sec": len(wav) / sr,
         }
+        if self.cfg.get("with_spk_embed"):
+            from dicttts_tpu_torch.ops.speaker import speaker_embed
+
+            item["spk_embed"] = speaker_embed(mel, f0, self.cfg, wav=wav, sr=sr, device=self.device)
         if self.cfg.get("with_f0cwt"):
             from dicttts_tpu_torch.ops.cwt import f0_cwt
 

@@ -91,6 +91,29 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
+def optimizer_step(opt, params, max_norm: float, lr: float) -> torch.Tensor:
+    """One optax-style update of ``params``: a parameter without a gradient
+    steps with zero, the gradients are clipped to ``max_norm`` by their
+    global norm, the lr is set, the optimizer steps. Returns the pre-clip
+    norm."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    norm = clip_by_global_norm_([p.grad for p in params], max_norm)
+    for group in opt.param_groups:
+        group["lr"] = lr
+    opt.step()
+    return norm
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """Host arrays (or tensors) to tensors on ``device``, with the transfer
+    dtypes upcast; other entries (``_meta``) pass through."""
+    return upcast_transfer_dtypes({
+        k: torch.as_tensor(v).to(device) if isinstance(v, (np.ndarray, torch.Tensor)) else v
+        for k, v in batch.items()})
+
+
 @contextlib.contextmanager
 def frozen(module: torch.nn.Module):
     """Run a forward whose backward must leave ``module``'s parameters no
@@ -208,11 +231,7 @@ class AdversarialTTSTask:
             "frame_cache", lambda: ds.device_frame_cache(max_frames=self.cfg.get("max_frames")))
 
     def to_device(self, batch: dict) -> dict:
-        """Host arrays (or tensors) to tensors on the task's device, with the
-        transfer dtypes upcast; other entries (``_meta``) pass through."""
-        return upcast_transfer_dtypes({
-            k: torch.as_tensor(v).to(self.device) if isinstance(v, (np.ndarray, torch.Tensor)) else v
-            for k, v in batch.items()})
+        return batch_to_device(batch, self.device)
 
     def prepare_batch(self, batch: dict) -> dict:
         """Resolve a frame-ref batch: gather each row's mels (and f0/uv) from
@@ -305,17 +324,8 @@ class AdversarialTTSTask:
                 a.zero_()
             acc["n"] = 0
         count = f"updates_{name}"
-        norm = self._update(opt, params, max_norm, schedule(getattr(self, count)))
+        norm = optimizer_step(opt, params, max_norm, schedule(getattr(self, count)))
         setattr(self, count, getattr(self, count) + 1)
-        return norm
-
-    def _update(self, opt, params, max_norm: float, lr: float) -> torch.Tensor:
-        """Clip, set the scheduled lr, step; returns the pre-clip norm.
-        Every parameter has a ``.grad`` (``_micro_step`` sees to it)."""
-        norm = clip_by_global_norm_([p.grad for p in params], max_norm)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
         return norm
 
     def train_step(self, batch: dict, generator: torch.Generator | None = None, *,

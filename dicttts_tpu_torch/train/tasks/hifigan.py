@@ -44,7 +44,7 @@ from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dty
 from dicttts_tpu_torch.ops.mel import gan_log_mel
 from dicttts_tpu_torch.train.losses import feature_matching_loss
 from dicttts_tpu_torch.train.stft_loss import multi_resolution_stft_loss
-from dicttts_tpu_torch.train.tasks.adv_base import clip_by_global_norm_, frozen
+from dicttts_tpu_torch.train.tasks.adv_base import frozen, optimizer_step
 from dicttts_tpu_torch.utils.device import resolve_device
 from dicttts_tpu_torch.utils.schedulers import step_decay_schedule
 
@@ -158,16 +158,6 @@ class HifiGanTask:
         with self.f32():
             return discriminator_adv_loss(scores_r, scores_f)
 
-    def _update(self, opt, params, max_norm: float, lr: float) -> torch.Tensor:
-        for p in params:  # a parameter without a gradient steps with zero, as optax does
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_([p.grad for p in params], max_norm)
-        for group in opt.param_groups:
-            group["lr"] = lr
-        opt.step()
-        return norm
-
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """One GAN step on a device batch (``generator`` is unused: the step
         draws nothing). Returns the losses and the pre-clip gradient norm of
@@ -179,17 +169,17 @@ class HifiGanTask:
         self.opt_d.zero_grad(set_to_none=True)
         loss_g, losses, wav_fake = self._gen_losses(batch, True)
         loss_g.backward()
-        metrics = {"grad_norm_g": self._update(self.opt_g, list(self.model.parameters()),
-                                               self.cfg.get("generator_grad_norm", 10.0),
-                                               self.schedule_g(self.updates_g))}
+        metrics = {"grad_norm_g": optimizer_step(self.opt_g, list(self.model.parameters()),
+                                                 self.cfg.get("generator_grad_norm", 10.0),
+                                                 self.schedule_g(self.updates_g))}
         self.updates_g += 1
         with torch.set_grad_enabled(disc_on):
             loss_d = self._disc_loss(wav_fake.detach(), batch["wavs"])
         if disc_on:
             loss_d.backward()
-            metrics["grad_norm_d"] = self._update(self.opt_d, list(self.disc.parameters()),
-                                                  self.cfg.get("discriminator_grad_norm", 1.0),
-                                                  self.schedule_d(self.updates_d))
+            metrics["grad_norm_d"] = optimizer_step(self.opt_d, list(self.disc.parameters()),
+                                                    self.cfg.get("discriminator_grad_norm", 1.0),
+                                                    self.schedule_d(self.updates_d))
             self.updates_d += 1
         self.step += 1
         return {**{k: v.detach() for k, v in losses.items()}, "total_loss": loss_g.detach(),

@@ -3,10 +3,12 @@ dicttts_tpu_torch/configs/) against dicttts_tpu.config and its YAML files:
 the recipe resolves to the same dict key for key (task_cls apart, which
 names the port's task; the HiFi-GAN configs too), override strings coerce alike, the saved
 config.yaml is read back as the JAX package reads it, and run.py names
-the tasks the port lacks. The PortaSpeech trees (tts/ps_adv.yaml,
-tts/ps_flow.yaml, datasets/biaobei/{base_text2mel,ps_adv,ps_flow}.yaml)
-equal the JAX trees but for task_cls, which names the port's task of the
-same module path (dicttts_tpu_torch. for dicttts_tpu.)."""
+the tasks the port lacks. The PortaSpeech and FastSpeech2 trees
+(tts/ps_adv.yaml, tts/ps_flow.yaml, tts/fs2.yaml,
+datasets/biaobei/{base_text2mel,ps_adv,ps_flow,fs2}.yaml) equal the JAX
+trees but for task_cls, which names the port's task of the same module
+path (dicttts_tpu_torch. for dicttts_tpu.); so does tts/base.yaml, whose
+task is FastSpeech2's."""
 
 import os
 
@@ -17,6 +19,7 @@ from dicttts_tpu import config as jconfig
 from dicttts_tpu_torch import config as tconfig
 from dicttts_tpu_torch.run import task_class
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
 from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
 from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
 from dicttts_tpu_torch.train.tasks.ps_flow import PortaSpeechFlowTask
@@ -25,11 +28,13 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 FILES = ["base.yaml", "tts/base.yaml", "tts/ps_flow.yaml", "tts/ps_adv.yaml", "tts/dict_tts.yaml",
          "datasets/biaobei/dict_tts.yaml", "tts/hifigan.yaml", "datasets/biaobei/hifigan.yaml",
          "datasets/wenetspeech/hifigan.yaml", "datasets/biaobei/base_text2mel.yaml",
-         "datasets/biaobei/ps_adv.yaml", "datasets/biaobei/ps_flow.yaml"]
+         "datasets/biaobei/ps_adv.yaml", "datasets/biaobei/ps_flow.yaml", "tts/fs2.yaml",
+         "datasets/biaobei/fs2.yaml"]
 PORT_TASK = "dicttts_tpu_torch.train.tasks.dict_tts.DictTTSTask"
 PORT_VOCODER_TASK = "dicttts_tpu_torch.train.tasks.hifigan.HifiGanTask"
 PORT_PS_TASKS = {"ps_adv.yaml": "dicttts_tpu_torch.train.tasks.ps_adv.PortaSpeechAdvTask",
                  "ps_flow.yaml": "dicttts_tpu_torch.train.tasks.ps_flow.PortaSpeechFlowTask"}
+PORT_FS2_TASK = "dicttts_tpu_torch.train.tasks.fs2.FastSpeech2Task"
 
 
 def _port_task(name):
@@ -38,6 +43,8 @@ def _port_task(name):
         return PORT_TASK
     if name.endswith("hifigan.yaml"):
         return PORT_VOCODER_TASK
+    if name == "tts/base.yaml" or name.endswith("fs2.yaml"):
+        return PORT_FS2_TASK
     return PORT_PS_TASKS.get(os.path.basename(name))
 
 
@@ -129,6 +136,8 @@ def test_run_names_the_tasks_not_ported(name):
         assert task_class(task_cls) is DictTTSTask
     elif name.endswith("hifigan.yaml"):
         assert task_class(task_cls) is HifiGanTask
+    elif _port_task(name) == PORT_FS2_TASK:
+        assert task_class(task_cls) is FastSpeech2Task
     elif os.path.basename(name) in PORT_PS_TASKS:
         assert task_class(task_cls) is {"ps_adv.yaml": PortaSpeechAdvTask,
                                         "ps_flow.yaml": PortaSpeechFlowTask}[os.path.basename(name)]

@@ -28,6 +28,7 @@ from dicttts_tpu_torch import run
 from dicttts_tpu_torch.config import CONFIG_ROOT
 from dicttts_tpu_torch.eval import per as tper
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
 from dicttts_tpu_torch.train.trainer import Trainer
 from dicttts_tpu_torch.utils import checkpoint as ckpt
 from dicttts_tpu_torch.utils.indexed_dataset import IndexedDatasetBuilder
@@ -149,9 +150,33 @@ def test_run_trains_resumes_keeps_the_best_and_infers(corpus, tmp_path, monkeypa
 def test_run_refuses_a_missing_corpus_and_unported_tasks(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="binary_data_dir"):
         _main(tmp_path, monkeypatch, "--hparams", f"binary_data_dir={tmp_path}")
+    # a task of the JAX package, named through --hparams, is refused before any data is read
+    jax_task = "dicttts_tpu.train.tasks.fs2.FastSpeech2Task"
+    with pytest.raises(NotImplementedError, match=jax_task.replace(".", r"\.")):
+        _main(tmp_path, monkeypatch, "--reset", "--hparams", f"task_cls={jax_task}")
+    # tts/base.yaml names the port's FastSpeech2 task, which trains
     tts_base = os.path.join(CONFIG_ROOT, "tts", "base.yaml")
-    with pytest.raises(NotImplementedError, match="FastSpeech2Task"):
-        run.main(["--config", tts_base, "--exp_name", "fs2", "--device", "cpu"])
+    hp = (f"binary_data_dir={corpus_dir(tmp_path)},hidden_size=16,enc_layers=1,dec_layers=1,"
+          "max_updates=1,val_check_interval=1,num_sanity_val_steps=0,max_frames=256,"
+          "mel_buckets=[128 256],max_sentences=5")
+    monkeypatch.chdir(tmp_path)
+    trainer, task = run.main(["--config", tts_base, "--exp_name", "fs2_base", "--device", "cpu",
+                              "--hparams", hp])
+    assert isinstance(task, FastSpeech2Task) and trainer.global_step == task.step == 1
+    assert np.isfinite(float(trainer.metrics["total_loss"]))
+
+
+def corpus_dir(root):
+    """The repo's valid split as the train, valid and test splits of a
+    corpus in ``root``/fs_corpus, with its vocabularies."""
+    out = os.path.join(str(root), "fs_corpus")
+    os.makedirs(out, exist_ok=True)
+    for f in ("word_set.json", "phone_set.json", "spk_map.json"):
+        shutil.copy(os.path.join(CORPUS, f), out)
+    for split in ("train", "valid", "test"):
+        for ext in (".data", ".idx", "_lengths.npy"):
+            shutil.copy(os.path.join(CORPUS, "valid" + ext), os.path.join(out, split + ext))
+    return out
 
 
 def _write(path, rows):

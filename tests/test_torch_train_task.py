@@ -34,6 +34,7 @@ from dicttts_tpu_torch.convert import jax_params_to_state, load_jax_params
 from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
 from dicttts_tpu_torch.serve import DictTTSServer, Request
 from dicttts_tpu_torch.train.tasks import dict_tts as tdict
+from dicttts_tpu_torch.train.tasks.adv_base import optimizer_step
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 from dicttts_tpu_torch.train.trainer import Trainer
 from dicttts_tpu_torch.utils.checkpoint import get_all_ckpts
@@ -203,7 +204,7 @@ def test_optimizer_rule_matches_optax():
             jp, opt_state = step({n: jnp.asarray(g) for n, g in grads.items()}, opt_state, jp)
             for n, p in module.named_parameters():
                 p.grad = torch.tensor(grads[n])
-            task._update(opt, list(module.parameters()), task.cfg[norm_key], sched(count))
+            optimizer_step(opt, list(module.parameters()), task.cfg[norm_key], sched(count))
         moved = 0.0
         for n, p in module.named_parameters():
             np.testing.assert_allclose(p.detach().numpy(), np.asarray(jp[n]), rtol=0, atol=1e-6, err_msg=n)
