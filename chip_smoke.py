@@ -147,12 +147,34 @@ Phases, each announced on its own line:
     CPU at B=2 and small widths: every loss and the gradient norm within
     2e-3.
 
+14. data parallelism, the serving export and the validation artifacts:
+    (a) on phase 8's directory, run.main of the recipe for 4 steps inside a
+    world-size-1 NCCL group (``--multihost`` with torchrun's variables, so
+    every collective runs over one rank) against the same 4 steps without a
+    group, deterministic kernels in both: losses within 1e-6, K1 and K2
+    launched every step; (b) two spawned ranks on the one card (gloo over a
+    FileStore, CUDA tensors) against one process on the whole batch: the
+    recipe's task at full width on the seeded bf16 bank, a 16-row corpus
+    batch whose halves differ in frames, dropout 0, pinned noise and crops,
+    deterministic kernels, 2 steps: losses and gradient norms within 1e-3, parameters within 1e-6
+    plus each update's Adam term at a gradient tolerance of 1e-2 |g| + 1e-5
+    of the largest (``update_atol``), the ranks' parameters equal; K1/K2 launches and peak memory per rank; (d)
+    the validation artifacts on phase 8's newest checkpoint: the card pass
+    (``validation_outputs``, K1 once), the figures where matplotlib
+    imports, whether tensorboardX is there; (c, after phase 13) the serving
+    export at the recipe's widths with use_pallas_s2pa and the recipe's
+    HiFi-GAN (512 channels), buckets 1x32 and 8x64: export and load
+    seconds, artifact bytes, ms a call of the exported module beside the
+    live test_step + vocoder (CUDA events), mel2word and pinyin_pred equal,
+    mels within 1e-4 and wavs within 1e-3, K3 once a call and a graph
+    node, eager S2PA's plain version never run.
+
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b, 8, 9, 10, 11, 12 and 13 remove.
+temporary directories that phases 7b, 8, 9, 10, 11, 12, 13 and 14 remove.
 """
 
 from __future__ import annotations
@@ -198,6 +220,10 @@ TRAIN_WARMUP, TRAIN_STEPS = 2, 20
 REPO = os.path.dirname(os.path.abspath(__file__))
 RECIPE_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml"
 RECIPE_STEPS, RESUME_STEPS = 16, 2  # two epochs of the train split's 8 batches
+# phase 14: steps of the world-size-1 runs and of the two-rank runs, the two-rank batch's rows,
+# the export's buckets
+DDP_STEPS, TWO_RANK_STEPS, DDP_ROWS = 4, 2, 16
+EXPORT_BUCKETS = ((1, 32), (8, 64))
 CORPUS_SPLITS = {"train": 324, "valid": 18, "test": 18}  # the repo's corpus, .prod_corpus/binary
 CORPUS_FILES = ("word_set.json", "phone_set.json", "pinyin_encoder.pkl", "spk_map.json")
 # phase 12: the PortaSpeech recipes on the corpus (post_glow_training_start
@@ -2655,6 +2681,379 @@ def fs2_card_vs_cpu(smi):
     return {"losses_rel": worst, "worst_leaf_rel": rel_leaf[worst_leaf], "worst_leaf": worst_leaf}
 
 
+# -- phase 14: data parallelism, the serving export, validation artifacts ------------------------
+
+def free_port() -> int:
+    """A free TCP port on localhost, for a rendezvous."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic kernels, cuDNN's and torch's (index_select's backward
+    adds with atomics otherwise, and two runs of one step differ by ~1e-5),
+    for the runs that phase 14 holds to each other."""
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2], warn_only=flags[3])
+
+
+def nccl_world_one(root, binary, smi):
+    """Phase 14a: run.main of the recipe on phase 8's corpus for DDP_STEPS
+    steps inside a world-size-1 NCCL group (``--multihost`` with torchrun's
+    variables: every collective runs, over one rank), and the same steps
+    without a group, deterministic kernels in both (cuDNN's and torch's).
+    Returns the launches (K1, K2, K3) of the run in the group."""
+    from dicttts_tpu_torch.parallel import mesh
+
+    hp = (f"binary_data_dir={binary},max_updates={DDP_STEPS},val_check_interval={DDP_STEPS},"
+          "num_sanity_val_steps=0")
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port()), "WORLD_SIZE": "1", "RANK": "0",
+           "LOCAL_RANK": "0"}
+    runs = {}
+    with deterministic():
+        for label in ("nccl_world_1", "no_group"):
+            os.environ.update(env if label == "nccl_world_1" else {})
+            try:
+                t = time.time()
+                extra = ("--multihost", "--dist_timeout", "300") if label == "nccl_world_1" else ()
+                trainer, task, n = run_main(root, label, hp, *extra)
+            finally:
+                for k in env:
+                    os.environ.pop(k, None)
+            if mesh.initialized():
+                raise AssertionError("run.main left its process group behind")
+            vals, finite = finite_run(trainer, task)
+            runs[label] = {"metrics": vals, "val": dict(trainer.val_metrics), "launches": n,
+                           "params": {k: v.detach().clone() for k, v in task.model.state_dict().items()},
+                           "step": trainer.global_step, "finite": finite}
+            say(f"{label}: {trainer.global_step} steps in {time.time() - t:.1f} s, launches (K1, K2, K3) {n}, "
+                f"last step {vals}")
+            del trainer, task
+            torch.cuda.empty_cache()
+    g, p = runs["nccl_world_1"], runs["no_group"]
+    worst = max(abs(g[s][k] - p[s][k]) / max(abs(p[s][k]), 1.0) for s in ("metrics", "val") for k in p[s])
+    d_param = max(float((g["params"][k].float() - v.float()).abs().max()) for k, v in p["params"].items())
+    say(f"world-size-1 NCCL group vs no group, {DDP_STEPS} steps: largest loss difference {worst:.3e} "
+        f"(relative past 1; tol 1e-6), largest parameter difference {d_param:.3e}; on {smi}")
+    if not (g["finite"] and p["finite"] and g["step"] == p["step"] == DDP_STEPS):
+        raise AssertionError("the world-size-1 runs did not train finite steps")
+    if set(g["metrics"]) != set(p["metrics"]) or worst > 1e-6:
+        raise AssertionError("the run in a world-size-1 NCCL group differs from the run without a group")
+    k1, k2, k3 = g["launches"]
+    if not (k2 == DDP_STEPS and k1 >= DDP_STEPS and k3 == 0) or g["launches"] != p["launches"]:
+        raise AssertionError(f"K1/K2 not launched every step in the group: {g['launches']}, {p['launches']}")
+    return g["launches"]
+
+
+DDP_CFG = {"dropout": 0.0, "predictor_dropout": 0.0, "disc_dropout": 0.0}
+
+
+def ddp_task(device):
+    """The recipe's DictTTSTask at full width on the seeded bf16 bank,
+    dropout 0, seeded weights."""
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+
+    bank = make_bank(device, torch.Generator(device=device).manual_seed(SEED + 7))
+    task = DictTTSTask(DDP_CFG, bank=bank, device=device)
+    task.build_state(SEED + 7)
+    return task
+
+
+def ddp_steps(task, batch, noise, starts):
+    """One step per noise draw on this rank's rows (the whole batch in one
+    process): the metrics of each, the peak memory and the launches."""
+    from dicttts_tpu_torch.parallel import mesh
+
+    mesh.broadcast_state(task.state_dict())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counts()
+    metrics, atol = [], {}
+    for eps in noise:
+        m = task.train_step(task.to_device(mesh.shard_batch(batch)), None,
+                            eps=torch.as_tensor(mesh.shard_batch({"e": eps})["e"]).to(task.device),
+                            start_frames_g=starts, start_frames_d=starts)
+        metrics.append({k: float(v) for k, v in m.items()})
+        for k, v in update_atol(task).items():
+            atol[k] = atol.get(k, 0.0) + v
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "launches": launch_counts(), "atol": atol,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "params": {f"{i}.{n}": p.detach().cpu() for i, mod in enumerate((task.model, task.disc))
+                       for n, p in mod.named_parameters()}}
+
+
+def update_atol(task) -> dict:
+    """Per parameter: 1e-6 plus what a gradient difference at the gradient
+    tolerance (1e-3 |g| + 1e-6 of the largest) can move the update just
+    taken, Adam's lr * tol / (sqrt(v_hat) + eps), at most 2 lr
+    (tests/torch_ddp_workers.adam_atol)."""
+    out = {}
+    for i, (mod, opt) in enumerate(((task.model, task.opt_g), (task.disc, task.opt_d))):
+        top = max(float(p.grad.abs().max()) for p in mod.parameters() if p.grad is not None)
+        group = opt.param_groups[0]
+        lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+        for n, p in mod.named_parameters():
+            if p not in opt.state:
+                out[f"{i}.{n}"] = 1e-6
+                continue
+            st = opt.state[p]
+            g = (st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt()
+            out[f"{i}.{n}"] = (1e-6 + torch.clamp(lr * (1e-3 * g + 1e-6 * top) / (g + eps), max=2 * lr)).cpu()
+    return out
+
+
+def ddp_rank(rank, store, out, batch, noise, starts, tf32):
+    """One of phase 14b's two ranks: gloo over a FileStore, CUDA tensors on
+    the one card, the parent's TF32 settings."""
+    import datetime
+
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=2, rank=rank,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        from dicttts_tpu_torch.ops import cuda_build
+
+        cuda_build.library()  # the parent's build, loaded from dicttts_tpu_torch/_build
+        with deterministic():
+            res = ddp_steps(ddp_task(torch.device("cuda", 0)), batch, noise, starts.cuda())
+    finally:
+        dist.destroy_process_group()
+    res.pop("atol")
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def ddp_two_ranks(binary, smi):
+    """Phase 14b: two spawned ranks on the one card with gloo against one
+    process on the whole batch: one corpus batch whose halves differ in
+    frames, the recipe's task at full width, dropout 0, pinned noise and
+    crops, deterministic kernels, TWO_RANK_STEPS steps. Returns the launches (K1, K2, K3) summed
+    over the ranks."""
+    from dicttts_tpu_torch.config import load_config
+    from dicttts_tpu_torch.data.datasets import TTSBatchProvider, TTSBinaryDataset
+
+    cfg = {**load_config(os.path.join(REPO, RECIPE_CONFIG), save=False), "binary_data_dir": binary,
+           "max_sentences": DDP_ROWS}
+    provider = TTSBatchProvider(TTSBinaryDataset(binary, "train", cfg, "dict"), cfg, shuffle=False,
+                                devices_multiple=2)
+    batch = {k: v for k, v in next(iter(provider.train_batches())).items() if k != "_meta"}
+    B, T = batch["mel2word"].shape
+    lengths = batch["mel_lengths"]
+    say(f"batch {B} x {T} frames; rank 0's rows {lengths[:B // 2].tolist()}, rank 1's {lengths[B // 2:].tolist()}")
+    if B % 2 or lengths[:B // 2].sum() == lengths[B // 2:].sum():
+        raise AssertionError("the batch's halves must differ in frames")
+    rng = np.random.RandomState(SEED + 8)
+    noise = [rng.randn(B, T // 4, 16).astype(np.float32) for _ in range(TWO_RANK_STEPS)]
+    starts = crop_starts(rng.rand(3), lengths, T)
+    device = torch.device("cuda")
+    t = time.time()
+    with deterministic():
+        task = ddp_task(device)
+        ref = {**ddp_steps(task, batch, noise, starts.to(device)), "task": task}
+    say(f"one process, {B} rows: {TWO_RANK_STEPS} steps in {time.time() - t:.1f} s, launches (K1, K2, K3) "
+        f"{ref['launches']}, peak memory {ref['peak_gib']:.2f} GiB")
+    del task
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ddp_") as out:
+        t = time.time()
+        tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32  # off since phase 0
+        torch.multiprocessing.spawn(ddp_rank, args=(os.path.join(out, "store"), out, batch, noise, starts, tf32),
+                                    nprocs=2, join=True)
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+    say(f"two ranks (gloo, one card): spawned, joined and stepped in {time.time() - t:.1f} s")
+    worst_loss, worst_param, over = (0.0, ""), 0.0, {}
+    n_params = sum(v.numel() for v in ref["params"].values())
+    opts = (ref["task"].opt_g, ref["task"].opt_d)
+    lr_max = 2 * TWO_RANK_STEPS * max(g["lr"] for o in opts for g in o.param_groups)
+    for r, res in enumerate(ranks):
+        for i, (got, want) in enumerate(zip(res["metrics"], ref["metrics"])):
+            if set(got) != set(want):
+                raise AssertionError(f"rank {r} step {i} reports {sorted(got)}, one process {sorted(want)}")
+            for k in want:
+                rel = abs(got[k] - want[k]) / max(abs(want[k]), 1e-6)
+                worst_loss = max(worst_loss, (rel, f"step {i} {k}: {got[k]:.7g} vs {want[k]:.7g}"))
+        for k, want in ref["params"].items():
+            err = (res["params"][k] - want).abs()
+            worst_param = max(worst_param, float(err.max()))
+            n_over = int((err > ref["atol"][k]).sum())
+            if n_over:
+                over[(r, k)] = (n_over, float(err.max()))
+                normed = k.startswith("1.discs.") and any(f".{b}" in k for b in ("conv_1.", "conv_2.", "in_"))
+                if not normed:
+                    raise AssertionError(f"rank {r}: {k} differs from one process by {float(err.max()):.3e}")
+        k1, k2, k3 = res["launches"]
+        say(f"rank {r}: launches (K1, K2, K3) {res['launches']}, peak memory {res['peak_gib']:.2f} GiB; "
+            f"losses step by step {[round(m['total_loss'], 6) for m in res['metrics']]}")
+        if not (k2 == TWO_RANK_STEPS and k1 >= TWO_RANK_STEPS and k3 == 0):
+            raise AssertionError(f"rank {r} did not launch K1 and K2 every step: {res['launches']}")
+    same = all(torch.equal(ranks[0]["params"][k], ranks[1]["params"][k]) for k in ref["params"])
+    beyond = sum(n for n, _ in over.values())
+    say(f"two ranks vs one process: largest relative loss or gradient-norm difference {worst_loss[0]:.3e} "
+        f"({worst_loss[1]}; tol 1e-3), largest parameter difference {worst_param:.3e} (at most {lr_max:.1e}, "
+        f"2 lr a step); {beyond} of 2 x {n_params} parameter elements beyond 1e-6 plus the Adam term of "
+        f"each update at the gradient tolerance, all in the discriminator's instance-normed blocks "
+        f"(rank, parameter: elements, largest difference): {over}; the ranks' parameters equal: {same}; "
+        f"on {smi}")
+    if worst_loss[0] > 1e-3 or worst_param > lr_max or not same:
+        raise AssertionError("two ranks differ from one process")
+    del ref
+    return tuple(map(sum, zip(*(res["launches"] for res in ranks))))
+
+
+def export_phase(smi):
+    """Phase 14c: the serving export at the recipe's widths with
+    use_pallas_s2pa and the recipe's HiFi-GAN, buckets 1x32 and 8x64:
+    export and load seconds, artifact bytes, ms a call of the exported
+    module beside the live test_step + vocoder (CUDA events), their outputs
+    compared, K3 launched once a call, eager S2PA never. Returns the
+    exported calls' launches (K1, K2, K3)."""
+    from dicttts_tpu_torch.models.hifigan import HifiGanGenerator
+    from dicttts_tpu_torch.ops import s2pa_fused as fused_mod
+    from dicttts_tpu_torch.serving_export import ExportedTTS, export_tts
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+    from dicttts_tpu_torch.vocoders.hifigan import spec2wav
+
+    device = torch.device("cuda")
+    cfg = {"use_pallas_s2pa": True, "use_device_dict_bank": False}
+    task = DictTTSTask(cfg, device=device)
+    task.build_state(SEED + 9)
+    with torch.no_grad():  # speech-like frame counts, as in phase 4
+        task.model.dur_predictor.linear[0].bias.fill_(3.0)
+    torch.manual_seed(SEED + 9)
+    vocoder = HifiGanGenerator().to(device).eval()  # the recipe's widths (512 channels)
+    bank = make_bank(device, torch.Generator(device=device).manual_seed(SEED + 9), torch.float32)
+    plain_calls = []
+    plain = fused_mod.s2pa_fused_plain
+    fused_mod.s2pa_fused_plain = lambda *a: plain_calls.append(1) or plain(*a)
+    launches = [0, 0, 0]
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as out:
+            t = time.time()
+            export_tts(task.cfg, task, vocoder, buckets=EXPORT_BUCKETS, gloss_len=BANK_L, pinyin_len=BANK_P,
+                       out_dir=out)
+            export_s = time.time() - t
+            sizes = {f: os.path.getsize(os.path.join(out, f)) for f in sorted(os.listdir(out))}
+            say(f"export of {len(EXPORT_BUCKETS)} buckets in {export_s:.1f} s; artifacts {sizes}")
+            served = ExportedTTS(out)
+            rng = np.random.RandomState(SEED + 9)
+            report = {"export_s": export_s, "bytes": sizes, "buckets": {}}
+            for B, Tw in EXPORT_BUCKETS:
+                t = time.time()
+                _, fn = served.module_for(B, Tw)
+                load_s = time.time() - t
+                n_ops = sum(str(n.target) == "dicttts_tpu_torch.s2pa_fused.default" for n in fn.graph.nodes)
+                wt = torch.tensor(rng.randint(3, BANK_V, (B, Tw)), device=device)
+                wt[:, 0] = 1
+                wt[:, -1] = 2
+                keys = bank["keys"][wt].contiguous()
+                x = {"word_tokens": wt.int(), "keys": keys, "values": keys, "key_map": bank["key_map"][wt],
+                     "pinyin": bank["pinyin"][wt], "pinyin_map": bank["pinyin_map"][wt],
+                     "pron_modified": torch.zeros((B, Tw), dtype=torch.int32, device=device)}
+                noise = served.noise(B, seed=B)
+                args = (*(x[k] for k in ("word_tokens", "keys", "values", "key_map", "pinyin", "pinyin_map",
+                                         "pron_modified")), noise)
+
+                def exported():
+                    with torch.no_grad():
+                        return fn(*args)
+
+                def live():
+                    out_ = task.test_step(x, noise=noise)
+                    return spec2wav(vocoder, out_["mel_out"]), out_
+
+                torch.cuda.synchronize()
+                zero_launch_counts()
+                wav, mel, m2w, pp = exported()
+                torch.cuda.synchronize()
+                n_exp = launch_counts()
+                live_wav, ref = live()
+                torch.cuda.synchronize()
+                n_live = launch_counts()
+                d_mel = float((mel - ref["mel_out"]).abs().max())
+                d_wav = float((wav - live_wav).abs().max())
+                exp_ms, live_ms = time_ms(exported, iters=5, warmup=1), time_ms(live, iters=5, warmup=1)
+                zero_launch_counts()
+                exported()
+                torch.cuda.synchronize()
+                launches = [a + b for a, b in zip(launches, launch_counts())]
+                say(f"bucket {B}x{Tw}: load {load_s:.2f} s, {n_ops} K3 node(s) in the graph; exported "
+                    f"{exp_ms:.2f} ms a call vs live test_step + vocoder {live_ms:.2f} ms (CUDA events); "
+                    f"frames {(m2w > 0).sum(1).tolist()}; max|dmel| {d_mel:.3e} (tol 1e-4), max|dwav| "
+                    f"{d_wav:.3e} (tol 1e-3); launches (K1, K2, K3) exported {n_exp}, live minus exported "
+                    f"{tuple(b - a for a, b in zip(n_exp, n_live))}; on {smi}")
+                report["buckets"][f"{B}x{Tw}"] = {"load_s": load_s, "exported_ms": exp_ms, "live_ms": live_ms,
+                                                  "max_abs_dmel": d_mel, "max_abs_dwav": d_wav}
+                if not (torch.equal(m2w, ref["mel2word"].int()) and torch.equal(pp, ref["pinyin_pred"].int())):
+                    raise AssertionError(f"bucket {B}x{Tw}: mel2word or pinyin_pred differ from the live path")
+                if d_mel > 1e-4 or d_wav > 1e-3 or not bool(torch.isfinite(wav).all()):
+                    raise AssertionError(f"bucket {B}x{Tw}: the exported outputs differ from the live path")
+                if n_ops != 1 or n_exp != (0, 0, 1) or n_live != (0, 0, 2):
+                    raise AssertionError(f"bucket {B}x{Tw}: K3 not launched once a call ({n_exp}, {n_live})")
+    finally:
+        fused_mod.s2pa_fused_plain = plain
+    if plain_calls:
+        raise AssertionError(f"eager S2PA's plain version ran {len(plain_calls)} times")
+    say("phase 14c report " + json.dumps(report))
+    return tuple(launches)
+
+
+def validation_artifacts_phase(root, gen, smi):
+    """Phase 14d: the trainer's validation artifacts on phase 8's newest
+    checkpoint: ``validation_outputs`` (the card pass) of the first
+    validation batch, the figures where matplotlib imports, and
+    ``Trainer.log_artifacts`` (a no-op without a TensorBoard writer).
+    Returns the card pass's launches (K1, K2, K3)."""
+    import importlib.util
+
+    from dicttts_tpu_torch import run
+    from dicttts_tpu_torch.config import load_config
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+    from dicttts_tpu_torch.train.trainer import Trainer
+
+    have = {m: importlib.util.find_spec(m) is not None for m in ("tensorboardX", "matplotlib")}
+    with in_dir(root):
+        cfg = load_config(config=os.path.join(REPO, RECIPE_CONFIG), exp_name="recipe", infer=True)
+        run.autoconfigure_vocabs(cfg)
+        task = DictTTSTask(cfg, run.build_data_provider(cfg), device="cuda")
+        trainer = Trainer(cfg["work_dir"], device="cuda", seed=cfg.get("seed", 1234))
+        trainer._restore(task)
+        batch = task.to_device({k: v for k, v in next(iter(task.val_batches())).items() if k != "_meta"})
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t = time.perf_counter()
+        v = task.validation_outputs(batch, gen)
+        ms = (time.perf_counter() - t) * 1e3
+        n = launch_counts()
+        say(f"validation_outputs on step {trainer.global_step}'s checkpoint: {ms:.1f} ms, predicted mel "
+            f"{v['mel_pred'].shape}, target {v['mel_gt'].shape}, pron_attn {v['pron_attn'].shape}; "
+            f"launches (K1, K2, K3) {n}; tensorboardX {'present' if have['tensorboardX'] else 'absent'} "
+            f"(a writer {'is' if trainer.writer() else 'is not'} made), matplotlib "
+            f"{'present' if have['matplotlib'] else 'absent'}; on {smi}")
+        if not all(np.isfinite(a).all() and a.size for a in v.values()) or n != (1, 0, 0):
+            raise AssertionError(f"validation_outputs: non-finite or empty outputs, or launches {n}")
+        if have["matplotlib"]:
+            arts = task.validation_artifacts(batch, gen)
+            say(f"validation_artifacts: figures {sorted(arts['figures'])}, audio {sorted(arts['audio'])}")
+        trainer.log_artifacts(task, task.val_batches())
+        if trainer._writer:
+            trainer._writer.close()
+    return n
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)  # never outlive the run's limit
     say("phase 0: device")
@@ -2840,6 +3239,18 @@ def main() -> int:
             "the unfused bank")
         recipe_launches.update(other_settings(root, binary, smi))
         say(f"phase 10c done at {time.time() - T_START:.1f} s")
+        t14 = time.time()
+        say(f"phase 14a: run.main of the recipe for {DDP_STEPS} steps in a world-size-1 NCCL group "
+            "(--multihost), against the same steps without a group")
+        ddp_launches = {"nccl_world_1": nccl_world_one(root, binary, smi)}
+        say(f"phase 14b: two ranks on the one card (gloo over a FileStore) against one process, "
+            f"{TWO_RANK_STEPS} steps of the recipe's task at full width on a corpus batch")
+        ddp_launches["two_ranks"] = ddp_two_ranks(binary, smi)
+        recipe_launches["ddp"] = tuple(map(sum, zip(*ddp_launches.values())))
+        say(f"phase 14a-b launches (K1, K2, K3) by run {ddp_launches}")
+        say("phase 14d: validation artifacts on phase 8's checkpoint")
+        recipe_launches["validation_artifacts"] = validation_artifacts_phase(root, gen, smi)
+        say(f"phase 14a, 14b and 14d done in {time.time() - t14:.1f} s, at {time.time() - T_START:.1f} s")
     say("phase 10d: one amp train step beside one f32 step on the card, same weights, batch and noise")
     recipe_launches["amp_vs_f32"] = amp_vs_f32_step(device, smi)
     say(f"phase 10 done at {time.time() - T_START:.1f} s")
@@ -2927,6 +3338,12 @@ def main() -> int:
         say("phase 13 report " + json.dumps({k: fs2_report[k] for k in ("registry", "transformer_tts", "ge2e",
                                                                         "card_vs_cpu")}))
     say(f"phase 13 done in {time.time() - t13:.1f} s, at {time.time() - T_START:.1f} s")
+
+    t14 = time.time()
+    say(f"phase 14c: the serving export at the recipe's widths with use_pallas_s2pa and HiFi-GAN, buckets "
+        f"{EXPORT_BUCKETS}")
+    recipe_launches["export"] = export_phase(smi)
+    say(f"phase 14c done in {time.time() - t14:.1f} s, at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),

@@ -246,11 +246,13 @@ class TTSBatchProvider:
     NON_ARRAY_KEYS = ("item_name", "txt", "words", "tokens_gloss")
 
     def __init__(self, dataset: TTSBinaryDataset, cfg: dict, shuffle: bool = True,
-                 emit_frame_refs: bool = False):
+                 emit_frame_refs: bool = False, devices_multiple: int = 1):
         self.ds = dataset
         self.cfg = cfg
         self.shuffle = shuffle
         self.emit_frame_refs = emit_frame_refs
+        # data parallelism: a closing batch is cut to a multiple of the ranks
+        self.devices_multiple = devices_multiple
 
     def _make_batches(self):
         sizes = self.ds.sizes
@@ -265,6 +267,7 @@ class TTSBatchProvider:
             lambda i: min(sizes[i], self.cfg.get("max_frames", 1548)),
             max_tokens=self.cfg.get("max_tokens", 30000),
             max_sentences=self.cfg.get("max_sentences", 100000),
+            required_batch_size_multiple=self.devices_multiple,
         )
 
     def collate(self, samples: list[dict]) -> dict:

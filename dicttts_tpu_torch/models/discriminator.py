@@ -11,7 +11,9 @@ all, as in the JAX module (which has no batch norm). Crop starts are drawn
 from a ``torch.Generator`` or passed in as ``start_frames``, and are
 computed on the device, so drawing them makes no host round trip. Windows longer than
 the batch's longest sequence are masked by the returned ``win_valid``, as
-in the JAX module.
+in the JAX module; under data parallelism the longest sequence is the
+global batch's (``parallel/mesh.global_max``), while each rank draws its
+own crop starts.
 
 Under amp the convolutions run in bf16 and the head of each window, and
 all of ``JCUDiscriminator``, in f32 with autocast off
@@ -34,6 +36,7 @@ from torch import nn
 
 from dicttts_tpu_torch.models.layers import dropout
 from dicttts_tpu_torch.ops.amp import f32_island
+from dicttts_tpu_torch.parallel.mesh import global_max
 
 
 def instance_norm_2d(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -102,7 +105,7 @@ class MultiWindowDiscriminator(nn.Module):
         start_frames [n_windows] and win_valid [n_windows] (1.0 where the
         window fits the longest sequence)."""
         T = mels.shape[1]
-        max_len = lengths.max()
+        max_len = global_max(lengths.max())  # the global batch's, under data parallelism
         if start_frames is None:
             if generator is None:
                 raise ValueError("drawing crop starts needs a torch.Generator")

@@ -27,6 +27,7 @@ from dicttts_tpu_torch.models.flows import ResidualCouplingBlock
 from dicttts_tpu_torch.models.layers import linear_1x1
 from dicttts_tpu_torch.models.wavenet import WN
 from dicttts_tpu_torch.ops.amp import f32_island
+from dicttts_tpu_torch.parallel.mesh import shard_denominator
 
 LOG2PI = math.log(2 * math.pi)
 
@@ -138,7 +139,7 @@ class FVAE(nn.Module):
         z_q, m_q, logs_q, x_mask_sqz = self.encoder(x, x_mask, g_sqz, eps, generator, noise_scale)
         x_recon = self.decoder(z_q, x_mask, g)
         mask_f32 = x_mask_sqz.float()
-        frames = torch.clamp(torch.sum(mask_f32), min=1.0)
+        frames = shard_denominator(torch.sum(mask_f32))  # the global frames over the world size
         with f32_island(z_q.device.type):
             if self.prior_flow is None:
                 kl = normal_kl_to_standard(m_q, logs_q)

@@ -20,8 +20,16 @@ wrapper: the kernel takes f32 only, so a lower-precision q is upcast
 (exactly), the kernel runs unchanged, and ctx, w and pron are rounded to
 q's dtype. The plain version does the same, with autocast off.
 
-``s2pa_fused`` takes the plain version for CPU tensors and launches the
-kernel for CUDA tensors; it never falls back from one to the other.
+The kernel is the operator ``torch.ops.dicttts_tpu_torch.s2pa_fused``
+(``torch.library.custom_op``), with the plain version as its CPU kernel,
+the launch as its CUDA kernel and a fake kernel that gives the output
+shapes and dtype, so ``torch.export`` keeps it as one node of the graph
+(``serving_export.py``) on either device. A graph that holds it needs this
+module imported to run or load. ``s2pa_fused``, the function callers call,
+checks the inputs, upcasts a lower-precision q and calls the operator: for
+CPU tensors that runs the plain version, for CUDA tensors the kernel; it
+never falls back from one to the other. The operator has no backward:
+K3 serves inference.
 """
 
 from __future__ import annotations
@@ -90,14 +98,33 @@ def s2pa_fused(q, k, v, key_map, pinyin_map):
     pron [B, T, P]), all in q's dtype. q may be bf16 or f16 with k and v
     f32: it is upcast, and the outputs are rounded to its dtype."""
     _check(q, k, v, key_map, pinyin_map)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"s2pa_fused runs on cpu or cuda, not {q.device}")
     if q.dtype != k.dtype:
         return tuple(o.to(q.dtype) for o in s2pa_fused(q.to(k.dtype), k, v, key_map, pinyin_map))
+    return tuple(torch.ops.dicttts_tpu_torch.s2pa_fused(q, k, v, key_map, pinyin_map))
+
+
+s2pa_fused.launches = 0
+
+
+@torch.library.custom_op("dicttts_tpu_torch::s2pa_fused", mutates_args=())
+def s2pa_fused_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, key_map: torch.Tensor,
+                  pinyin_map: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K3 as an operator, for inputs that ``s2pa_fused`` has checked (q,
+    k and v of one dtype); its kernels follow."""
+    raise ValueError(f"s2pa_fused runs on cpu or cuda, not {q.device}")
+
+
+@s2pa_fused_op.register_kernel("cpu")
+def _s2pa_fused_cpu(q, k, v, key_map, pinyin_map):
+    with torch.autocast("cpu", enabled=False):
+        return s2pa_fused_plain(q, k, v, key_map, pinyin_map)
+
+
+@s2pa_fused_op.register_kernel("cuda")
+def _s2pa_fused_cuda(q, k, v, key_map, pinyin_map):
     device = q.device
-    if device.type == "cpu":
-        with torch.autocast("cpu", enabled=False):
-            return s2pa_fused_plain(q, k, v, key_map, pinyin_map)
-    if device.type != "cuda":
-        raise ValueError(f"s2pa_fused runs on cpu or cuda, not {device}")
     if q.dtype != torch.float32:
         raise TypeError(f"the CUDA kernel takes float32, got {q.dtype}")
     if not all(t.is_contiguous() for t in (q, k, v, key_map, pinyin_map)):
@@ -125,4 +152,8 @@ def s2pa_fused(q, k, v, key_map, pinyin_map):
     return ctx, w, pron
 
 
-s2pa_fused.launches = 0
+@s2pa_fused_op.register_fake
+def _s2pa_fused_fake(q, k, v, key_map, pinyin_map):
+    B, T, _ = q.shape
+    return (torch.empty_like(q), q.new_empty((B, T, k.shape[2])),
+            q.new_empty((B, T, pinyin_map.shape[2])))

@@ -18,8 +18,22 @@ trainer, then train, or with ``--infer`` run the test loop (Dict-TTS writes
         --config dicttts_tpu_torch/configs/datasets/biaobei/fs2.yaml --exp_name fs2_biaobei
 
 ``--device`` defaults to the card and raises without one; ``cpu`` runs the
-kernels' plain versions (for tests). Not ported: ``--multihost`` and the
-JAX package's random-number switch.
+kernels' plain versions (for tests).
+
+Data parallelism, the JAX package's mesh over every device: under
+``torchrun`` (``WORLD_SIZE`` > 1) each process joins the group, ``cuda`` as
+``cuda:LOCAL_RANK`` with NCCL and ``cpu`` with gloo, and trains on its rows
+of each global batch (``parallel/mesh.py``); the train and valid batches
+are cut to multiples of the world size, the test split's are not.
+``--multihost`` also reads the JAX package's ``DICTTTS_COORDINATOR``
+(host:port), ``DICTTTS_NUM_PROCESSES`` and ``DICTTTS_PROCESS_ID``, one
+process per card. A failed join raises; nothing drops to one process.
+
+    torchrun --nproc_per_node=8 -m dicttts_tpu_torch.run --config ... --exp_name X
+    DICTTTS_COORDINATOR=host0:29500 DICTTTS_NUM_PROCESSES=16 DICTTTS_PROCESS_ID=<i> \
+        LOCAL_RANK=<card> python -m dicttts_tpu_torch.run --multihost --config ... --exp_name X
+
+Not ported: the JAX package's random-number switch (``DICTTTS_RNG_IMPL``).
 """
 
 from __future__ import annotations
@@ -33,6 +47,7 @@ import pickle
 
 from dicttts_tpu_torch.config import load_config
 from dicttts_tpu_torch.data.datasets import TTSBatchProvider, TTSBinaryDataset, VocoderDataset
+from dicttts_tpu_torch.parallel import mesh
 from dicttts_tpu_torch.train.trainer import Trainer
 
 PACKAGE = "dicttts_tpu_torch."
@@ -63,15 +78,16 @@ class _Splits:
     train split's dataset, from which the task takes the device bank and
     the frame cache."""
 
-    def __init__(self, cfg: dict, data_dir: str, kind: str):
+    def __init__(self, cfg: dict, data_dir: str, kind: str, devices_multiple: int = 1):
         def split(name_key, default, split_cfg=cfg, **kw):
             ds = TTSBinaryDataset(data_dir, cfg.get(name_key, default), cfg, kind)
             return TTSBatchProvider(ds, split_cfg, **kw)
 
         # with the frame cache, train batches carry item_idx in place of mels
         self.train = split("train_set_name", "train", shuffle=True,
-                           emit_frame_refs=bool(cfg.get("use_device_frame_cache")))
-        self.valid = split("valid_set_name", "valid", shuffle=False)
+                           emit_frame_refs=bool(cfg.get("use_device_frame_cache")),
+                           devices_multiple=devices_multiple)
+        self.valid = split("valid_set_name", "valid", shuffle=False, devices_multiple=devices_multiple)
         self.test = split("test_set_name", "test", split_cfg=dict(cfg, max_sentences=1), shuffle=False)
         self.ds = self.train.ds
 
@@ -85,10 +101,12 @@ class _Splits:
         return self.test.test_batches()
 
 
-def build_data_provider(cfg: dict):
+def build_data_provider(cfg: dict, devices_multiple: int = 1):
     """The task's batches: ``VocoderDataset`` crops of the train split for
     HiFi-GAN (its train, validation and test batches alike, as in the JAX
-    package), else the three splits' providers."""
+    package; their count must divide by ``devices_multiple``), else the
+    three splits' providers, the train and valid batches cut to multiples
+    of ``devices_multiple``."""
     data_dir = cfg.get("binary_data_dir", "")
     # a split is .data/.idx or .rio/.rix (the JAX package requires train.idx
     # even where train.rio exists)
@@ -98,10 +116,13 @@ def build_data_provider(cfg: dict):
             f"binary_data_dir {data_dir!r} has no binaries; binarize the corpus first "
             "(python -m dicttts_tpu_torch.text.binarize --config ...)")
     if "hifigan" in cfg.get("task_cls", "").lower():
-        return VocoderDataset(data_dir, cfg.get("train_set_name", "train"), cfg,
-                              batch_size=cfg.get("max_sentences", 24))
+        batch_size = cfg.get("max_sentences", 24)
+        if batch_size % devices_multiple:  # its losses average over every crop: no zero rows
+            raise ValueError(f"the vocoder's max_sentences ({batch_size}) must be a multiple of the "
+                             f"{devices_multiple} data-parallel ranks")
+        return VocoderDataset(data_dir, cfg.get("train_set_name", "train"), cfg, batch_size=batch_size)
     kind = "dict" if cfg.get("use_dict") else ("word" if cfg.get("dur_level") == "word" else "fs")
-    return _Splits(cfg, data_dir, kind)
+    return _Splits(cfg, data_dir, kind, devices_multiple)
 
 
 def task_class(task_path: str):
@@ -128,14 +149,39 @@ def main(argv=None):
     parser.add_argument("--reset", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default; raises without a card) or cpu")
+    parser.add_argument("--multihost", action="store_true",
+                        help="join a process group over several hosts (DICTTTS_COORDINATOR, "
+                             "DICTTTS_NUM_PROCESSES, DICTTTS_PROCESS_ID, or torchrun's variables)")
+    parser.add_argument("--dist_timeout", type=float, default=mesh.DEFAULT_TIMEOUT_S,
+                        help="seconds a collective may wait before it raises")
     args = parser.parse_args(argv)
 
-    cfg = load_config(config=args.config, exp_name=args.exp_name, overrides=args.hparams,
-                      reset=args.reset, infer=args.infer)
+    device = args.device
+    joined = not mesh.initialized() and (args.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    if joined:
+        device = mesh.init_distributed(args.device, multihost=args.multihost, timeout_s=args.dist_timeout)
+        if not mesh.is_chief():
+            logging.getLogger().setLevel(logging.WARNING)  # rank 0 logs
+    try:
+        return _run(args, device)
+    finally:
+        if joined:
+            mesh.dist.destroy_process_group()
+
+
+def _run(args, device):
+    def config(save: bool) -> dict:
+        return load_config(config=args.config, exp_name=args.exp_name, overrides=args.hparams,
+                           reset=args.reset, infer=args.infer, save=save)
+
+    # rank 0 writes the work dir's config.yaml; the others read it after
+    cfg = config(True) if mesh.is_chief() else None
+    mesh.barrier()
+    cfg = cfg or config(False)
     task_cls = task_class(cfg["task_cls"])
     autoconfigure_vocabs(cfg)
-    data = build_data_provider(cfg)
-    task = task_cls(cfg, data, device=args.device)
+    data = build_data_provider(cfg, mesh.world_size())
+    task = task_cls(cfg, data, device=device)
     trainer = Trainer(
         work_dir=cfg.get("work_dir", ""),
         max_updates=cfg.get("max_updates", 160000),
@@ -148,7 +194,8 @@ def main(argv=None):
         monitor_mode=cfg.get("valid_monitor_mode", "min"),
         save_best=cfg.get("save_best", True),
         seed=cfg.get("seed", 1234),
-        device=args.device,
+        device=device,
+        valid_infer_interval=cfg.get("valid_infer_interval"),
     )
     if args.infer:
         outputs = trainer.test(task)

@@ -2,7 +2,11 @@
 durations, LSGAN and the KL clamp.
 
 Port of ``dicttts_tpu/train/losses.py``. Masks follow the JAX package: a
-mel frame counts where the target has any nonzero bin. SSIM blurs with the
+mel frame counts where the target has any nonzero bin. Under data
+parallelism the masked averages divide by the global batch's count over
+the world size and the KL floor reads the global KL
+(``parallel/mesh.py``), so the mean over ranks of each loss is the global
+batch's, as the JAX package's sharded step computes it. SSIM blurs with the
 11-tap gaussian (sigma 1.5) as two banded-Toeplitz matrix products, an
 exact transform of the SAME-padded 11x11 conv2d; those products stay
 ``torch.matmul``, since no Pallas kernel computed them.
@@ -16,6 +20,7 @@ import numpy as np
 import torch
 
 from dicttts_tpu_torch.ops.seq import mel2token_to_dur
+from dicttts_tpu_torch.parallel.mesh import global_mean, shard_denominator
 
 
 def parse_mel_loss_spec(spec: str) -> dict[str, float]:
@@ -39,7 +44,7 @@ def nonzero_mel_mask(target: torch.Tensor) -> torch.Tensor:
 
 def _masked_average(err: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     w = w.expand_as(err)
-    return torch.sum(err * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.sum(err * w) / shard_denominator(torch.sum(w))
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -116,7 +121,15 @@ def word_dur_loss(dur_pred: torch.Tensor, mel2word: torch.Tensor, word_lengths: 
     if dur_scale == "log":
         dur_gt = torch.log(dur_gt + 1.0)
     diff = (dur_pred * nonpadding - dur_gt * nonpadding).abs()
-    return torch.sum(diff) / torch.clamp(torch.sum(nonpadding), min=1.0)
+    return torch.sum(diff) / shard_denominator(torch.sum(nonpadding))
+
+
+def row_mean(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Mean of ``x`` [B, ...] over the rows whose ``lengths`` [B] are
+    nonzero: a zero row, which pads a batch to the world size, counts for
+    nothing. The count is the global batch's (``shard_denominator``)."""
+    rows = (lengths > 0).to(x.dtype).reshape(-1, *([1] * (x.dim() - 1)))
+    return torch.sum(x * rows) / shard_denominator(torch.sum(rows) * (x.numel() // x.shape[0]))
 
 
 def lsgan_g_loss(disc_out: torch.Tensor) -> torch.Tensor:
@@ -139,5 +152,7 @@ def feature_matching_loss(fmaps_real, fmaps_fake) -> torch.Tensor:
 
 
 def clamp_kl(kl: torch.Tensor, floor: float = 0.002) -> torch.Tensor:
-    """KL floor: below it the term is constant and passes no gradient."""
-    return torch.clamp(kl, min=floor)
+    """KL floor: below it the term is constant and passes no gradient.
+    Under data parallelism the floor applies to the global KL (the mean
+    over ranks of ``kl``), so every rank takes the same side of it."""
+    return torch.where(global_mean(kl) >= floor, kl, torch.full_like(kl, floor))

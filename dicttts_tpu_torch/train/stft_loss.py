@@ -11,13 +11,21 @@ from __future__ import annotations
 import torch
 
 from dicttts_tpu_torch.ops.mel import stft_magnitude
+from dicttts_tpu_torch.parallel.mesh import global_sum, world_size
 
 DEFAULT_RESOLUTIONS = ((1024, 120, 600), (2048, 240, 1200), (512, 50, 240))
 
 
 def spectral_convergence(mag_real: torch.Tensor, mag_fake: torch.Tensor) -> torch.Tensor:
-    num = torch.sqrt(torch.sum(torch.square(mag_real - mag_fake)))
-    return num / torch.clamp(torch.sqrt(torch.sum(torch.square(mag_real))), min=1e-8)
+    """||S_r - S_f||_F / ||S_r||_F over the (global) batch. Under data
+    parallelism both norms are the global batch's: each rank returns
+    sqrt(N) / D plus W times the first-order term of its own part of N
+    (zero in the mean over ranks), so the ranks' mean is the global value
+    and their averaged gradient the global gradient."""
+    num2 = torch.sum(torch.square(mag_real - mag_fake))
+    den = torch.clamp(torch.sqrt(global_sum(torch.sum(torch.square(mag_real)))), min=1e-8)
+    root = torch.clamp(torch.sqrt(global_sum(num2)), min=1e-12)
+    return (world_size() * (num2 - num2.detach()) / (2 * root) + root) / den
 
 
 def log_stft_magnitude_loss(mag_real: torch.Tensor, mag_fake: torch.Tensor) -> torch.Tensor:

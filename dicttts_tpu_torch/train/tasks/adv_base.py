@@ -16,7 +16,8 @@ One step, as in the JAX package:
 3. the updates: each optimizer clips to its global norm by optax's rule
    (scale by max/norm when norm >= max), then steps AdamW with the
    schedule read at its own update count. A non-finite generator loss
-   skips the generator update and leaves its optimizer untouched; while
+   skips the generator update and leaves its optimizer untouched (under
+   data parallelism the global loss decides, so every rank skips); while
    the discriminator is gated off (step < disc_start_steps, or step %
    disc_interval != 0) its optimizer and schedule do not step.
 
@@ -40,6 +41,12 @@ Under ``amp`` (``ops/amp.py``) the model and discriminator passes run under
 autocast to bf16; the losses are computed with autocast off, on f32
 values. Parameters and optimizer state stay f32.
 
+Under data parallelism (``parallel/mesh.py``) each rank steps on its rows
+of the global batch: the losses are W times their shares of the global
+batch's, the gradients are averaged over the ranks once per update (at
+the k-th micro-step with accumulation), and the reported losses are the
+global batch's.
+
 Batches reach the steps through ``to_device`` (host arrays to tensors on
 the task's device, transfer dtypes upcast) and ``prepare_batch``, which
 resolves frame-ref batches (``use_device_frame_cache``: ``item_idx`` in
@@ -59,6 +66,7 @@ import torch
 from dicttts_tpu_torch.models.discriminator import MultiWindowDiscriminator
 from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dtype
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
+from dicttts_tpu_torch.parallel.mesh import all_reduce_grads, reduce_metrics
 from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
 
@@ -93,12 +101,14 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
 
 def optimizer_step(opt, params, max_norm: float, lr: float) -> torch.Tensor:
     """One optax-style update of ``params``: a parameter without a gradient
-    steps with zero, the gradients are clipped to ``max_norm`` by their
-    global norm, the lr is set, the optimizer steps. Returns the pre-clip
-    norm."""
+    steps with zero, the gradients are averaged over the data-parallel
+    ranks (one collective; none without a process group), clipped to
+    ``max_norm`` by their global norm, the lr is set, the optimizer steps.
+    Returns the pre-clip norm."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    all_reduce_grads(params)
     norm = clip_by_global_norm_([p.grad for p in params], max_norm)
     for group in opt.param_groups:
         group["lr"] = lr
@@ -287,7 +297,8 @@ class AdversarialTTSTask:
         with frozen(self.disc), self.amp():
             d_out = self.disc(mel_pred, mel_lengths, start_frames, generator)
         with self.f32():
-            return torch.mean(torch.square(d_out["y"].float() - 1.0) * d_out["win_valid"][None, :])
+            y = d_out["y"].float()
+            return L.row_mean(torch.square(y - 1.0) * d_out["win_valid"][None, :], mel_lengths)
 
     def _disc_losses(self, mel_fake, mel_real, lengths, generator=None, start_frames=None):
         """Real and fake in one stacked pass, crop starts shared."""
@@ -298,8 +309,8 @@ class AdversarialTTSTask:
         with self.f32():
             y = out["y"].float()
             wv = out["win_valid"][None, :]
-            loss_r = torch.mean(torch.square(y[:B] - 1.0) * wv)
-            loss_f = torch.mean(torch.square(y[B:]) * wv)
+            loss_r = L.row_mean(torch.square(y[:B] - 1.0) * wv, lengths)
+            loss_f = L.row_mean(torch.square(y[B:]) * wv, lengths)
         return loss_r + loss_f, {"r": loss_r, "f": loss_f}
 
     def _micro_step(self, name: str, opt, params, max_norm: float, schedule):
@@ -352,10 +363,11 @@ class AdversarialTTSTask:
                                                  batch["mel_lengths"], generator, start_frames_d)
         if disc_on:
             loss_d.backward()
-        metrics = {**{k: v.detach() for k, v in {**g_losses, **d_losses}.items()},
-                   "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()}
+        # the global batch's losses: every rank takes the same skip decision
+        metrics = reduce_metrics({**{k: v.detach() for k, v in {**g_losses, **d_losses}.items()},
+                                  "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()})
         updated = {}
-        if bool(torch.isfinite(loss_g)):  # the step's one host sync
+        if bool(torch.isfinite(metrics["total_loss"])):  # the step's one host sync
             updated["grad_norm_g"] = self._micro_step(
                 "g", self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
                 self.schedule_g)

@@ -37,7 +37,8 @@ from ``data.ds.device_bank()`` and its batches from ``data``; with
 place of the mels (``adv_base.prepare_batch``). ``after_test_step`` and
 ``test_end`` write ``<work_dir>/generated/<item>.mel.npy`` (and the wav,
 with ``vocoder_ckpt``) and ``meta.csv``, whose pinyin column the PER scorer
-reads (``eval/per.py``).
+reads (``eval/per.py``). ``validation_artifacts`` gives the trainer's
+TensorBoard its figures and audio.
 
 Batch keys (the collater's): word_tokens [B, Tw], pron_modified [B, Tw],
 mel2word [B, T_mel], mels [B, T_mel, 80] (or item_idx [B]),
@@ -48,6 +49,7 @@ key_map, pinyin, pinyin_map.
 from __future__ import annotations
 
 import csv
+import logging
 import os
 import pickle
 
@@ -60,6 +62,7 @@ from dicttts_tpu_torch.models.dict_tts import DictTTS
 from dicttts_tpu_torch.serve import BANK_KEYS, pinyin_decode
 from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.train.tasks.adv_base import AdversarialTTSTask
+from dicttts_tpu_torch.utils import plot
 from dicttts_tpu_torch.utils.device import resolve_device
 from dicttts_tpu_torch.vocoders import get_vocoder_cls
 from dicttts_tpu_torch.vocoders.hifigan import save_wav
@@ -91,6 +94,8 @@ DEFAULTS = {
     # inference (test_step)
     "max_frames": 1548,
 }
+log = logging.getLogger("dicttts_tpu_torch.task")
+
 # hard-coded in the JAX package (models/discriminator.py Disc2DBlockStack)
 DISC_DROPOUT = 0.25
 
@@ -191,6 +196,42 @@ class DictTTSTask(AdversarialTTSTask):
         return {"mel_out": out["mel_out"], "mel2word": out["mel2word"],
                 "pron_attn": out["pron_attn"].float(),
                 "pinyin_pred": pinyin_decode(out["pron_attn"], dm.pinyin)}
+
+    @torch.no_grad()
+    def validation_outputs(self, batch: dict, generator: torch.Generator | None = None) -> dict:
+        """The card pass of ``validation_artifacts``: ``test_step`` on a
+        device batch, and its first row as host arrays: the predicted mel
+        cut to its predicted frames, the target mel cut to its length, and
+        the pronunciation weights [Tw, P]."""
+        batch = self.prepare_batch(batch)
+        out = self.test_step(batch, generator)
+        n = int(batch["mel_lengths"][0])
+        n_pred = int((out["mel2word"][0] > 0).sum())
+        return {"mel_pred": out["mel_out"][0, :n_pred].float().cpu().numpy(),
+                "mel_gt": batch["mels"][0, :n].float().cpu().numpy(),
+                "pron_attn": out["pron_attn"][0].cpu().numpy()}
+
+    def validation_artifacts(self, batch: dict, generator: torch.Generator | None = None) -> dict:
+        """TensorBoard figures and audio of a validation batch's first row,
+        as the JAX task logs them: ``mel_gt_vs_pred`` and ``pron_attn``, and
+        with ``vocoder_ckpt`` or ``log_val_audio`` the vocoded prediction
+        and target (a vocoder that fails leaves the figures, with a
+        warning). Needs matplotlib."""
+        v = self.validation_outputs(batch, generator)
+        arts = {"figures": {"mel_gt_vs_pred": plot.spec_figure(v["mel_pred"], v["mel_gt"]),
+                            "pron_attn": plot.attn_figure(v["pron_attn"], "pron attention")},
+                "audio": {}}
+        if self.cfg.get("vocoder_ckpt") or self.cfg.get("log_val_audio", False):
+            try:
+                if self._vocoder is None:
+                    self._vocoder = get_vocoder_cls(self.cfg.get("vocoder", "HifiGanVocoder"))(
+                        self.cfg, device=self.device)
+                sr = self.cfg.get("audio_sample_rate", 22050)
+                arts["audio"] = {"pred": (self._vocoder.spec2wav(v["mel_pred"]), sr),
+                                 "gt_mel_vocoded": (self._vocoder.spec2wav(v["mel_gt"]), sr)}
+            except Exception as e:  # the figures still go out
+                log.warning("validation audio failed: %r", e)
+        return arts
 
     def after_test_step(self, batch_idx: int, batch: dict, out: dict) -> dict:
         """Write each item's mel (``<work_dir>/generated/<item>.mel.npy``, cut

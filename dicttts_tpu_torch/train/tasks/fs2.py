@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from dicttts_tpu_torch.models.fastspeech2 import FastSpeech2
 from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dtype
 from dicttts_tpu_torch.ops.seq import mel2token_to_dur
+from dicttts_tpu_torch.parallel.mesh import reduce_metrics, shard_denominator
 from dicttts_tpu_torch.train import losses as L
 from dicttts_tpu_torch.train.tasks.adv_base import batch_to_device, optimizer_step
 from dicttts_tpu_torch.utils.device import resolve_device
@@ -127,16 +128,16 @@ class FastSpeech2Task:
             nonpadding = (batch["txt_tokens"] > 0).float()
             dur_gt = torch.log(mel2token_to_dur(batch["mel2ph"], dur.shape[1]).float() + 1.0)
             losses["pdur"] = (torch.sum(torch.square(dur - dur_gt) * nonpadding)
-                              / torch.clamp(nonpadding.sum(), min=1.0) * self.lambda_dur)
+                              / shard_denominator(nonpadding.sum()) * self.lambda_dur)
             if self.use_pitch:
                 mel_nonpadding = (batch["mel2ph"] > 0).float()
                 p_pred = out["pitch_pred"].float()
                 bce = F.binary_cross_entropy_with_logits(p_pred[:, :, 1], batch["uv"], reduction="none")
-                losses["uv"] = (torch.sum(bce * mel_nonpadding) / torch.clamp(mel_nonpadding.sum(), min=1.0)
+                losses["uv"] = (torch.sum(bce * mel_nonpadding) / shard_denominator(mel_nonpadding.sum())
                                 * self.lambda_pitch)
                 f0_nonpadding = mel_nonpadding * (1 - batch["uv"])
                 losses["f0"] = (torch.sum(torch.square(p_pred[:, :, 0] - batch["f0"]) * f0_nonpadding)
-                                / torch.clamp(f0_nonpadding.sum(), min=1.0) * self.lambda_pitch)
+                                / shard_denominator(f0_nonpadding.sum()) * self.lambda_pitch)
         return sum(losses.values()), losses, out
 
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
@@ -150,8 +151,8 @@ class FastSpeech2Task:
         norm = optimizer_step(self.opt, list(self.model.parameters()), self.cfg.get("clip_grad_norm", 1.0),
                               self.schedule(self.step))
         self.step += 1
-        return {**{k: v.detach() for k, v in losses.items()}, "total_loss": loss.detach(),
-                "grad_norm": norm}
+        return {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
+                                  "total_loss": loss.detach()}), "grad_norm": norm}
 
     @torch.no_grad()
     def val_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:

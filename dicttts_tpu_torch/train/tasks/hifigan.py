@@ -42,6 +42,7 @@ from dicttts_tpu_torch.models.hifigan import (
 )
 from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dtype
 from dicttts_tpu_torch.ops.mel import gan_log_mel
+from dicttts_tpu_torch.parallel.mesh import reduce_metrics
 from dicttts_tpu_torch.train.losses import feature_matching_loss
 from dicttts_tpu_torch.train.stft_loss import multi_resolution_stft_loss
 from dicttts_tpu_torch.train.tasks.adv_base import frozen, optimizer_step
@@ -182,8 +183,9 @@ class HifiGanTask:
                                                     self.schedule_d(self.updates_d))
             self.updates_d += 1
         self.step += 1
-        return {**{k: v.detach() for k, v in losses.items()}, "total_loss": loss_g.detach(),
-                "disc_loss": loss_d.detach(), **metrics}
+        return {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
+                                  "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()}),
+                **metrics}
 
     @torch.no_grad()
     def val_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:

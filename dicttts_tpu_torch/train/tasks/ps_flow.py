@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from dicttts_tpu_torch.parallel.mesh import reduce_metrics
 from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule
 
@@ -107,9 +108,10 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         losses = {**self._main_losses(out, batch), "postflow": out["postflow"]}
         loss = out["postflow"] if post_on else sum(v for k, v in losses.items() if k != "postflow")
         loss.backward()
-        metrics = {**{k: v.detach() for k, v in losses.items()}, "total_loss": loss.detach(),
+        metrics = {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
+                                     "total_loss": loss.detach()}),
                    "post_stage": torch.tensor(float(post_on))}
-        if bool(torch.isfinite(loss)):  # the step's one host sync
+        if bool(torch.isfinite(metrics["total_loss"])):  # the step's one host sync; the global loss
             main, post = self.partition()
             if post_on:
                 metrics["grad_norm_pf"] = self._micro_step(

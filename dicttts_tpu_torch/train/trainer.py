@@ -18,12 +18,31 @@ Port of the single-device loop of ``dicttts_tpu/train/trainer.py``:
   where it has them (the PortaSpeech tasks have neither).
 
 Each step's randomness (dropout masks, the posterior noise, crop starts)
-comes from a ``torch.Generator`` seeded by (seed, step), so a resumed run
-draws what the uninterrupted run would have drawn. The JAX trainer's
-``steps_per_dispatch`` chains steps in one dispatch; here each step is
-launched on its own (the same math). Device constants (the bank, the frame
-cache) are not checkpointed. Not ported: the device mesh, multi-host runs,
-validation artifacts and the TensorBoard writer.
+comes from a ``torch.Generator`` seeded by (seed, step, rank), so a resumed
+run draws what the uninterrupted run would have drawn. Device constants
+(the bank, the frame cache) are not checkpointed.
+
+Data parallelism (the JAX trainer's mesh; ``parallel/mesh.py``): under a
+process group every rank builds the same global batches from the same
+seed, pads each to a multiple of the world size with zero rows and steps
+on its own rows; after the build or the resume rank 0's weights and
+optimizer state are broadcast. The tasks' steps average the gradients and
+report the global batch's losses. Validation reduces each batch's metrics
+over the ranks and weights them by the global batch's sentences, so it
+gives one process's numbers. Rank 0 alone writes checkpoints, TensorBoard
+and the test outputs; every rank resumes from the same newest checkpoint.
+
+With ``tensorboardX`` installed (it is optional, as in the JAX trainer)
+rank 0 writes ``<work_dir>/tb``: the ``tr/*`` scalars (the step's losses
+and ``steps_per_sec``) every ``log_interval`` steps, the ``val/*`` means at
+each validation, and every ``valid_infer_interval`` steps (by default each
+validation) the task's ``validation_artifacts`` of the first validation
+batch: figures and audio. An artifact that fails logs a warning and never
+stops training.
+
+Not ported: the JAX trainer's ``steps_per_dispatch`` (K steps chained in
+one dispatch; here each step is launched on its own, the same math) and
+its checkpoint write on a thread beside the next steps.
 
 Each train step appends a record to ``history``: the step, its sentences
 and mel frames (the batch's shape), the milliseconds the loop waited for
@@ -42,12 +61,14 @@ from __future__ import annotations
 import contextlib
 import logging
 import math
+import os
 import time
 from typing import Iterable
 
 import numpy as np
 import torch
 
+from dicttts_tpu_torch.parallel import mesh
 from dicttts_tpu_torch.utils.checkpoint import (get_last_checkpoint, load_checkpoint, read_extras,
                                                 save_checkpoint)
 from dicttts_tpu_torch.utils.device import resolve_device
@@ -59,6 +80,12 @@ log = logging.getLogger("dicttts_tpu_torch.trainer")
 def _host(batch: dict) -> dict:
     """A batch without its host-only ``_meta``."""
     return {k: v for k, v in batch.items() if k != "_meta"}
+
+
+def _shard(batch: dict) -> dict:
+    """This rank's rows of a host batch, padded with zero rows to a
+    multiple of the world size first (both the identity in one process)."""
+    return mesh.shard_batch(mesh.pad_batch_to_devices(_host(batch), mesh.world_size()))
 
 
 def batch_rows(batch: dict) -> int:
@@ -76,7 +103,7 @@ class Trainer:
                  num_sanity_val_steps: int = 5, num_ckpt_keep: int = 3, log_interval: int = 100,
                  eval_max_batches: int = -1, monitor_key: str = "total_loss",
                  monitor_mode: str = "min", save_best: bool = True, seed: int = 1234,
-                 device="cuda"):
+                 device="cuda", valid_infer_interval: int | None = None):
         if monitor_mode not in ("min", "max"):
             raise ValueError(f"monitor_mode must be 'min' or 'max', got {monitor_mode!r}")
         self.work_dir = work_dir
@@ -97,9 +124,40 @@ class Trainer:
         self.val_metrics: dict = {}
         self.history: list[dict] = []  # one record per train step of this fit
         self.test_seconds = 0.0  # the last test loop's wall time
+        # figures and audio cost more than the scalar validation: their own interval
+        self.valid_infer_interval = valid_infer_interval or val_check_interval
+        self._writer = None  # the TensorBoard writer: None until asked for, False if unavailable
+
+    def _generator(self, seed: int) -> torch.Generator:
+        """A generator for ``seed`` with this rank folded in (rank 0's is
+        the single-process one): each rank draws for its own rows. The
+        rank moves the seed within its low 32 bits, the only ones the CPU
+        generator reads, by a large odd stride."""
+        return torch.Generator(device=self.device).manual_seed(seed + mesh.rank() * 2_654_435_761)
 
     def step_generator(self, step: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(self.seed * 1_000_003 + step)
+        return self._generator(self.seed * 1_000_003 + step)
+
+    def writer(self):
+        """Rank 0's ``tensorboardX`` writer on ``<work_dir>/tb``; None on the
+        other ranks, without a work dir, or where tensorboardX is not
+        installed."""
+        if self._writer is None:
+            self._writer = False
+            if mesh.is_chief() and self.work_dir:
+                try:
+                    from tensorboardX import SummaryWriter
+                except ImportError:
+                    log.info("tensorboardX is not installed: no TensorBoard logs")
+                else:
+                    self._writer = SummaryWriter(logdir=os.path.join(self.work_dir, "tb"))
+        return self._writer or None
+
+    def log_metrics(self, metrics: dict, prefix: str) -> None:
+        writer = self.writer()
+        if writer:
+            for k, v in metrics.items():
+                writer.add_scalar(f"{prefix}/{k}", float(v), self.global_step)
 
     def _restore(self, task) -> None:
         """Build the task's state; load the newest checkpoint, if any."""
@@ -128,6 +186,7 @@ class Trainer:
         else:
             train, val = (lambda: train_batches), (lambda: val_batches or ())
         self._restore(task)
+        mesh.broadcast_state(task.state_dict())
         task.attach_device_frame_cache()
         if self.num_sanity_val_steps > 0 and self.global_step == 0:
             self.evaluate(task, val(), max_batches=self.num_sanity_val_steps, sanity=True)
@@ -142,7 +201,7 @@ class Trainer:
                         break
                     t1 = time.perf_counter()
                     n_batches += 1
-                    self.metrics = task.train_step(task.to_device(_host(batch)),
+                    self.metrics = task.train_step(task.to_device(_shard(batch)),
                                                    self.step_generator(self.global_step))
                     self.global_step += 1
                     self.history.append({
@@ -150,30 +209,41 @@ class Trainer:
                         "frames": batch_frames(batch), "wait_ms": (t1 - t0) * 1e3,
                         "step_ms": (time.perf_counter() - t1) * 1e3})
                     if self.global_step % self.log_interval == 0:
-                        log.info("step %d | %s", self.global_step,
-                                 " ".join(f"{k}={float(v):.4f}" for k, v in self.metrics.items()))
+                        recent = self.history[-self.log_interval:]
+                        sps = 1e3 * len(recent) / sum(h["wait_ms"] + h["step_ms"] for h in recent)
+                        self.log_metrics({**self.metrics, "steps_per_sec": sps}, "tr")
+                        log.info("step %d | %s | %.2f it/s", self.global_step,
+                                 " ".join(f"{k}={float(v):.4f}" for k, v in self.metrics.items()), sps)
                     if self.global_step % self.val_check_interval == 0:
                         self.save(task, self.evaluate(task, val()))
                         saved_at = self.global_step
+                        if self.global_step % self.valid_infer_interval == 0:
+                            self.log_artifacts(task, val())
             if n_batches == 0:
                 raise ValueError(f"train_batches yielded nothing at step {self.global_step}")
         if saved_at != self.global_step:
             self.save(task, self.evaluate(task, val()))
+        if self._writer:
+            self._writer.close()
+        self._writer = None
+        mesh.barrier()  # every rank leaves after rank 0's last checkpoint
 
     def evaluate(self, task, val_batches: Iterable[dict], max_batches: int | None = None,
                  sanity: bool = False) -> dict:
         """Validation losses over up to ``max_batches`` batches
         (``eval_max_batches`` if None; <= 0: all), each batch weighted by its
-        sentence count. Batch i draws from a generator seeded by (seed, i),
-        so two validations of one state agree."""
+        sentence count. Batch i draws from a generator seeded by (seed, i,
+        rank), so two validations of one state agree. Under data
+        parallelism each batch's metrics are reduced over the ranks and
+        weighted by the global batch's sentences."""
         max_batches = self.eval_max_batches if max_batches is None else max_batches
         results = []
         for i, batch in enumerate(val_batches):
             if 0 < max_batches <= i:
                 break
-            batch = task.to_device(_host(batch))
-            gen = torch.Generator(device=self.device).manual_seed(self.seed + i)
-            results.append((task.val_step(batch, gen), batch_rows(batch)))
+            n = batch_rows(batch)
+            metrics = task.val_step(task.to_device(_shard(batch)), self._generator(self.seed + i))
+            results.append((mesh.reduce_metrics(metrics), n))
         sums: dict = {}
         count = 0
         for metrics, n in results:  # one host read per value, after every batch is queued
@@ -185,16 +255,38 @@ class Trainer:
                  means)
         if not sanity:
             self.val_metrics = means
+            self.log_metrics(means, "val")
         return means
 
+    def log_artifacts(self, task, val_batches: Iterable[dict]) -> None:
+        """The task's ``validation_artifacts(batch, generator) -> {'figures':
+        {name: Figure}, 'audio': {name: (wav, sr)}}`` of the first
+        validation batch, to TensorBoard (rank 0, with a writer). A failure
+        logs a warning and never stops training."""
+        writer = self.writer()
+        if writer is None or not hasattr(task, "validation_artifacts"):
+            return
+        try:
+            batch = task.to_device(_host(next(iter(val_batches))))
+            arts = task.validation_artifacts(batch, torch.Generator(device=self.device).manual_seed(self.seed))
+            for name, (wav, sr) in arts.get("audio", {}).items():
+                writer.add_audio(name, np.asarray(wav)[:, None], self.global_step, sample_rate=sr)
+            for name, fig in arts.get("figures", {}).items():
+                writer.add_figure(name, fig, self.global_step)
+        except Exception as e:  # artifacts must never stop training
+            log.warning("validation artifact logging failed: %r", e)
+
     def save(self, task, val_metrics: dict) -> str:
-        """Save a checkpoint at the current step; with ``save_best``, also
-        the best one when ``val_metrics`` improve on the monitored value."""
+        """Save a checkpoint at the current step (rank 0; the path, or ""
+        on other ranks); with ``save_best``, also the best one when
+        ``val_metrics`` improve on the monitored value."""
         monitored = val_metrics.get(self.monitor_key, val_metrics.get("total_loss", math.nan))
         better = (monitored < self.best_val if self.monitor_mode == "min"
                   else monitored > self.best_val)
         if better:
             self.best_val = monitored
+        if not mesh.is_chief():
+            return ""
         return save_checkpoint(self.work_dir, self.global_step, task.state_dict(),
                                keep=self.num_ckpt_keep, is_best=self.save_best and better,
                                extra={"best_val": float(self.best_val)})
@@ -204,9 +296,13 @@ class Trainer:
         """The task's test loop from the newest checkpoint: per batch,
         ``task.after_test_step(i, host batch, host outputs)`` (or the host
         outputs themselves where the task has no such hook); then
-        ``task.test_end``, if it has one. Returns the per-batch results."""
+        ``task.test_end``, if it has one. Returns the per-batch results.
+        Under data parallelism rank 0 alone runs it, on whole batches, and
+        the other ranks return [] at once."""
         if task.device != self.device:
             raise ValueError(f"task on {task.device}, trainer on {self.device}")
+        if not mesh.is_chief():
+            return []
         self._restore(task)
         if self.global_step == 0:
             log.warning("no checkpoint in %r: testing the initial weights", self.work_dir)
