@@ -169,12 +169,35 @@ Phases, each announced on its own line:
     mels within 1e-4 and wavs within 1e-3, K3 once a call and a graph
     node, eager S2PA's plain version never run.
 
+15. the reference's checkpoints and the PER pipeline: (a, inside phase 8's
+    directory, after 14d) a seeded DictTTS at the recipe's widths (phase 8's
+    vocabulary) and a HiFi-GAN at 512 channels written with torch.save in the
+    reference's layouts (weight-norm pairs where the JAX converter folds, the
+    task checkpoint nested under state_dict/model beside mel_disc, the
+    vocoder under generator, the unused keys present), converted by
+    ``dicttts_tpu_torch.tools.convert_torch_ckpt``; DictTTSInferencer from
+    the converted checkpoints and from the models in memory on 8 PER
+    sentences with pinned noise and use_pallas_s2pa: mel2word and pinyin
+    equal, mels within 1e-5 relative, wavs within 1e-4, K3 once a call;
+    (b, at the end) ``tools.per_eval.main`` on the repo's stand-in
+    dictionary (.prod_corpus/zh-dict.json; its phones and sandhi from
+    tests/per_standin_text.json) with --n_items 300, --max_updates 200 and
+    --score_train: binarize seconds and items/s, step ms by shape under the
+    config's amp, K1 and K2 once a train step, ms per test utterance, PER and
+    the first-reading baseline, the slot breakdown; 50 label and meta.csv
+    rows, get_pron_error printing the same PER, the held-in probe without
+    error (a pipeline check after 200 updates from random weights: no
+    quality claimed); (c) ``tools.attn_probe`` on (b)'s experiment: slot
+    counts, finite statistics, K1 once a test utterance.
+
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
-outside the gitignored build directory dicttts_tpu_torch/_build/ and the
-temporary directories that phases 7b, 8, 9, 10, 11, 12, 13 and 14 remove.
+outside the gitignored build directory dicttts_tpu_torch/_build/, the
+temporary directories that phases 7b, 8, 9, 10, 11, 12, 13, 14 and 15
+remove, and phase 15b's work dir checkpoints/per_eval_chip_smoke<pid>,
+which it removes.
 """
 
 from __future__ import annotations
@@ -183,10 +206,12 @@ import contextlib
 import copy
 import csv
 import faulthandler
+import io
 import json
 import math
 import os
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
@@ -260,6 +285,9 @@ VOC_F0_RTOL = 0.02
 # corpus voice's), where the subharmonic picks and near-ties between lags occur
 VOC_F0_HIGH_HZ = (160.0, 330.0)
 VOC_CHUNK = 16  # wavs in the chunk run on the card and on the CPU
+# phase 15: per_eval's updates (its sentences: tests/per_standin_text.json's n_items) and the
+# test utterances attn_probe reads
+PER_UPDATES, PER_PROBE_N = 200, 30
 # a frame whose normalized ACF spans less than this over the lag band has no
 # peak (seeded tones: voiced frames span 1.2 at their 1st percentile, frames
 # at a silence's edge 1e-6 to 2e-3)
@@ -3054,6 +3082,278 @@ def validation_artifacts_phase(root, gen, smi):
     return n
 
 
+# -- phase 15: reference checkpoints into the port, the PER pipeline, attention diagnostics ---------
+
+# the keys the JAX converter documents as unused (convert_dict_tts), at the recipe's hidden width
+REFERENCE_UNUSED = {"sin_pos._float_tensor": (1,), "enc_pos_proj.weight": (192, 384), "enc_pos_proj.bias": (192,),
+                    "dec_query_proj.weight": (192, 384), "dec_query_proj.bias": (192,),
+                    "dec_res_proj.weight": (192, 384), "dec_res_proj.bias": (192,),
+                    "attn.in_proj_weight": (576, 192), "attn.out_proj.weight": (192, 192)}
+
+
+def reference_layout(module, rng, unused=None):
+    """``module``'s state dict in the reference's layout: weight norm split
+    into weight_v = w * s (s > 0 per output row) and weight_g = ||w|| on
+    every convolution the JAX converter folds (all but the attention's 1x1
+    q/k/v/o and a coupling's ``pre``, which it reads as they are), the
+    ``unused`` keys filled from ``rng``. Returns (state, pairs)."""
+    from torch import nn
+
+    state = {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
+    names = [f"{n}.weight" for n, m in module.named_modules() if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d))
+             and n.split(".")[-1] not in ("conv_q", "conv_k", "conv_v", "conv_o", "pre")]
+    for name in names:
+        w = state.pop(name)
+        s = torch.tensor(rng.uniform(0.5, 2.0, (w.shape[0],) + (1,) * (w.ndim - 1)), dtype=w.dtype)
+        state[name + "_v"] = w * s
+        state[name + "_g"] = torch.linalg.vector_norm(w, dim=tuple(range(1, w.ndim)), keepdim=True)
+    for k, shape in (unused or {}).items():
+        state[k] = torch.tensor(rng.randn(*shape), dtype=torch.float32)
+    return state, len(names)
+
+
+def reference_import_phase(root, binary, smi):
+    """Phase 15a: a seeded DictTTS at the recipe's widths (phase 8's
+    vocabulary) and a HiFi-GAN at 512 channels written with torch.save in
+    the reference's layouts, converted by tools.convert_torch_ckpt, and
+    DictTTSInferencer from the converted checkpoints against the same models
+    in memory: 8 PER sentences, pinned noise, use_pallas_s2pa (K3 once a
+    call). Returns the report and the launches (K1, K2, K3)."""
+    from dicttts_tpu_torch.infer import DictTTSInferencer
+    from dicttts_tpu_torch.tools import convert_torch_ckpt
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+    from dicttts_tpu_torch.vocoders.hifigan import HifiGanVocoder, build_generator
+
+    route, sandhi = sandhi_route()
+    cfg = dict(text_cfg(root, binary, ""), use_pallas_s2pa=True, profile_infer=False)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(SEED + 15)
+        task = DictTTSTask(cfg, device="cpu")
+        model, disc, vocoder = task.build_model(), task._build_disc(), build_generator(cfg)
+    with torch.no_grad():
+        model.dur_predictor.linear[0].bias.fill_(3.0)  # speech-like frame counts, as in phase 4
+    rng = np.random.RandomState(SEED + 15)
+    unused = dict(REFERENCE_UNUSED, **{"dict_encoder.S2PA_module.emb.weight": (cfg["word_size"], 192)})
+    model_state, model_pairs = reference_layout(model, rng, unused)
+    voc_state, voc_pairs = reference_layout(vocoder, rng)
+    ref_dir = os.path.join(root, "reference")
+    os.makedirs(ref_dir)
+    src = {"dict_tts": os.path.join(ref_dir, "model_ckpt_steps_300000.ckpt"),
+           "hifigan": os.path.join(ref_dir, "model_ckpt_steps_2168000.ckpt")}
+    torch.save({"state_dict": {"model": model_state, "mel_disc": disc.state_dict()}, "global_step": 300000},
+               src["dict_tts"])
+    torch.save({"generator": voc_state}, src["hifigan"])
+    dst, report = {}, {"sandhi": route}
+    for name, hp in (("dict_tts", f"binary_data_dir={binary}"), ("hifigan", "")):
+        dst[name] = os.path.join(root, f"converted_{name}")
+        t = time.perf_counter()
+        out = convert_torch_ckpt.main(["--model", name, "--src", src[name], "--dst", dst[name],
+                                       *(["--hparams", hp] if hp else [])])
+        secs = time.perf_counter() - t
+        want = (model_pairs, len(unused)) if name == "dict_tts" else (voc_pairs, 0)
+        say(f"{name}: {out['params'] / 1e6:.2f}M parameters converted in {secs:.2f} s; {out['folded']} weight-norm "
+            f"pairs folded, {len(out['dropped'])} unused keys dropped ({', '.join(out['dropped'][:3])}"
+            f"{', ...' if len(out['dropped']) > 3 else ''})")
+        if (out["folded"], len(out["dropped"])) != want:
+            raise AssertionError(f"{name}: folded {out['folded']} and dropped {len(out['dropped'])}, want {want}")
+        report[name] = {"params": out["params"], "folded": out["folded"], "dropped": len(out["dropped"]),
+                        "convert_s": secs}
+
+    texts = per_sentences()[:8]
+    converted = DictTTSInferencer(dict(cfg, work_dir=dst["dict_tts"], vocoder_ckpt=dst["hifigan"]), sandhi=sandhi)
+    in_memory = DictTTSInferencer(dict(cfg, vocoder_ckpt=""), state={"params_g": model.state_dict()},
+                                  sandhi=sandhi)
+    in_memory.vocoder = HifiGanVocoder(cfg, params=vocoder.state_dict())
+    c = converted.task.cfg
+    noise = torch.randn((len(texts), c["max_frames"] // 4, c["latent_size"]),
+                        generator=torch.Generator().manual_seed(SEED + 150))
+    outs = {}
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    for name, inf in (("converted", converted), ("in_memory", in_memory)):
+        steps = []
+        test_step = inf.task.test_step
+        inf.task.test_step = lambda *a, **k: steps.append(test_step(*a, **k)) or steps[-1]
+        before = launch_counts()[2]
+        t = time.perf_counter()
+        results = inf.synthesize_batch(texts, noise=noise)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if launch_counts()[2] - before != 1:
+            raise AssertionError(f"{name}: K3 launched {launch_counts()[2] - before} times in one call")
+        for wav, info in results:  # random weights: the decode may hold pad ids, so no syllable count
+            if not (0 < info["n_frames"] and wav.shape == (info["n_frames"] * inf.vocoder.hop,)
+                    and np.isfinite(wav).all() and np.isfinite(info["mel"]).all()):
+                raise AssertionError(f"{name}: wav {wav.shape} for {info['n_frames']} frames, or not finite")
+        outs[name] = (steps[0], results)
+        say(f"{name}: one call of {len(texts)} sentences in {ms:.1f} ms, frames "
+            f"{[info['n_frames'] for _, info in results]}")
+    launches = launch_counts()
+    (a, ra), (b, rb) = outs["converted"], outs["in_memory"]
+    mel_rel = float((a["mel_out"] - b["mel_out"]).abs().max() / b["mel_out"].abs().max())
+    wav_err = max(float(np.abs(wa - wb).max()) for (wa, _), (wb, _) in zip(ra, rb))
+    same_m2w = torch.equal(a["mel2word"], b["mel2word"])
+    same_pinyin = all(ia["pinyin"] == ib["pinyin"] for (_, ia), (_, ib) in zip(ra, rb))
+    say(f"converted vs in memory: mel2word equal {same_m2w}, pinyin equal {same_pinyin}, mel max|d| / max|mel| "
+        f"{mel_rel:.3e} (tol 1e-5: the folded weights differ from the originals by f32 rounding), wav max|d| "
+        f"{wav_err:.3e} (tol 1e-4); launches (K1, K2, K3) {launches}; on {smi}")
+    if not (same_m2w and same_pinyin and mel_rel <= 1e-5 and wav_err <= 1e-4):
+        raise AssertionError("the converted reference checkpoints do not reproduce the models they came from")
+    report.update(mel_rel=mel_rel, wav_max_abs=wav_err, launches=list(launches))
+    return report, launches
+
+
+def per_pipeline_phase(smi):
+    """Phase 15b-c: tools.per_eval.main on the repo's stand-in dictionary
+    (its phones and sandhi from tests/per_standin_text.json: no jieba on
+    the card's machine), then tools.attn_probe on its experiment. The train
+    and test runs go through run.main in this process (to count launches
+    and read the trainer), the held-in probe through per_eval's own
+    subprocess. Returns the report and the launches by run."""
+    from dicttts_tpu_torch import run
+    from dicttts_tpu_torch.tools import attn_probe, get_pron_error, per_eval
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+
+    with open(os.path.join(REPO, "tests", "per_standin_text.json"), encoding="utf-8") as f:
+        table = json.load(f)
+    fixed = per_eval.FixedText(table)
+    exp = f"per_eval_chip_smoke{os.getpid()}"
+    work_dir = os.path.join(REPO, "checkpoints", exp)
+    report, launches, runs, built, per_step = {}, {}, {}, {}, []
+    orig = {"run_cli": per_eval.run_cli, "build": per_eval.build_per_corpus, "step": DictTTSTask.train_step}
+
+    def build(*a, **k):
+        t = time.perf_counter()
+        out = orig["build"](*a, **k)
+        built.update(seconds=time.perf_counter() - t, binarizer=out[4])
+        return out
+
+    def run_cli(cfg_fn, exp_name, log_fn, infer=False, hparams="", device="cuda"):
+        if "test_set_name=" in hparams:  # the held-in probe: per_eval's own subprocess
+            t = time.perf_counter()
+            orig["run_cli"](cfg_fn, exp_name, log_fn, infer, hparams, device)
+            runs["probe_subprocess_s"] = time.perf_counter() - t
+            return
+        name = "infer" if infer else "train"
+        with in_dir(REPO):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launch_counts()
+            t = time.perf_counter()
+            runs[name] = run.main(per_eval.run_argv(cfg_fn, exp_name, infer, hparams, device))
+            torch.cuda.synchronize()
+            runs[f"{name}_s"] = time.perf_counter() - t
+            runs[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches[f"per_eval_{name}"] = launch_counts()
+
+    def counted_step(self, batch, generator=None, **kw):
+        before = launch_counts()
+        out = orig["step"](self, batch, generator, **kw)
+        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
+        return out
+
+    per_eval.run_cli, per_eval.build_per_corpus, DictTTSTask.train_step = run_cli, build, counted_step
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_per_") as tmp:
+            root = os.path.join(tmp, "corpus")
+            t = time.perf_counter()
+            result = per_eval.main(
+                ["--dict", os.path.join(REPO, table["dict"]), "--root", root, "--test_set",
+                 os.path.join(tmp, "test_set.json"), "--out", os.path.join(tmp, "per.json"),
+                 "--tag", exp[len("per_eval_"):], "--n_items", str(table["n_items"]),
+                 "--max_updates", str(PER_UPDATES), "--score_train", "--device", "cuda"], text=fixed)
+            total_s = time.perf_counter() - t
+            per_eval.run_cli, per_eval.build_per_corpus, DictTTSTask.train_step = (
+                orig["run_cli"], orig["build"], orig["step"])
+            st = built["binarizer"].stats
+            say(f"15b corpus: {result['provenance']['n_heteronym_chars']} heteronyms, "
+                f"{result['provenance']['heteronym_slots']} slots, {result['provenance']['distinct_syllables']} "
+                f"syllables; built and binarized on the card in {built['seconds']:.2f} s ({st['items']} items, "
+                f"{st['items'] / built['seconds']:.1f} items/s; items {st['items_s']:.2f} s with {st['workers']} "
+                f"text workers, the card's mel and f0 {st['features_s']:.2f} s; bank {st['bank_s']:.2f} s, "
+                f"{st['bank_bytes'] / 1e6:.1f} MB); splits {st['splits']}; on {smi}")
+            trainer, task = runs["train"]
+            c = task.cfg
+            say(f"15b training: {trainer.global_step} steps in {runs['train_s']:.1f} s (amp {c['amp']}, max_sentences "
+                f"{c['max_sentences']}, mel_buckets {c['mel_buckets']}, bank {tuple(task.bank['keys'].shape)} "
+                f"{task.bank['keys'].dtype}, s2pa_bank_fused {c['s2pa_bank_fused']}); peak memory "
+                f"{runs['train_peak_gib']:.2f} GiB; launches (K1, K2, K3) {launches['per_eval_train']}")
+            by_shape = {}
+            for h in trainer.history:
+                by_shape.setdefault(f"{h['sentences']}x{h['frames']}", []).append(h["step_ms"])
+            for shape, ms in sorted(by_shape.items()):
+                later = ms[1:] or ms
+                say(f"15b step ms at {shape}: {len(ms)} steps, first {ms[0]:.1f}, repeats median "
+                    f"{statistics.median(later):.2f} (min {min(later):.2f}, max {max(later):.2f}); on {smi}")
+            report["steps"] = {k: {"n": len(v), "first": v[0], "median": statistics.median(v[1:] or v)}
+                               for k, v in by_shape.items()}
+            # the discriminator and its optimizer step only from disc_start_steps on (max_updates // 4)
+            start = c["disc_start_steps"]
+            stages = {"generator only": [h["step_ms"] for h in trainer.history[1:] if h["step"] <= start],
+                      "with the discriminator": [h["step_ms"] for h in trainer.history if h["step"] > start + 1]}
+            stages = {k: v for k, v in stages.items() if v}
+            say("15b step ms by stage (disc_start_steps " + str(start) + "): " + "; ".join(
+                f"{k} {len(v)} steps, median {statistics.median(v):.2f}, min {min(v):.2f}, max {max(v):.2f}"
+                for k, v in stages.items()) + f"; on {smi}")
+            report["stage_median_ms"] = {k: statistics.median(v) for k, v in stages.items()}
+            kinds = sorted(set(per_step))
+            say(f"15b launches per train step (K1, K2, K3): {kinds} over {len(per_step)} steps")
+            if kinds != [(1, 1, 0)] or len(per_step) != PER_UPDATES:
+                raise AssertionError(f"per_eval's training launched {kinds} per step over {len(per_step)} steps")
+            infer_trainer, _ = runs["infer"]
+            ms_utt = 1e3 * infer_trainer.test_seconds / result["n_test_items"]
+            say(f"15b --infer: {result['n_test_items']} test utterances, {ms_utt:.2f} ms each (test loop), run "
+                f"{runs['infer_s']:.1f} s; launches {launches['per_eval_infer']}; the held-in probe's "
+                f"subprocess {runs['probe_subprocess_s']:.1f} s")
+            if launches["per_eval_infer"] != (result["n_test_items"], 0, 0):
+                raise AssertionError(f"--infer launched {launches['per_eval_infer']}")
+
+            labels, meta = os.path.join(root, "labels.csv"), os.path.join(root, "meta_test.csv")
+            n_rows = {p: sum(1 for _ in open(p, encoding="utf-8")) - 1 for p in (labels, meta)}
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                per = get_pron_error.main(["--pred", meta, "--labels", labels])
+            printed = buf.getvalue().strip().splitlines()[-1]
+            bd, probe = result["breakdown"], result["train_probe"]
+            say(f"15b PER {result['per_pct']} % (first-reading baseline "
+                f"{result['provenance']['first_pron_baseline_per_pct']} %); get_pron_error printed {printed!r}; "
+                f"heteronym slots {bd['heteronym_slots']} ({bd['heteronym_errors']} wrong, free "
+                f"{bd['free_slots']}/{bd['free_errors']}, sandhi-forced {bd['sandhi_forced_slots']}/"
+                f"{bd['sandhi_forced_errors']}), single-reading syllables {bd['single_pron_syllables']} "
+                f"({bd['single_pron_errors']} wrong), first reading predicted {bd['model_predicts_first_reading_pct']} "
+                f"%, rows skipped {bd['rows_skipped_len_mismatch']}; held-in probe {probe}; per_eval "
+                f"{total_s:.1f} s")
+            if n_rows != {labels: 50, meta: 50}:
+                raise AssertionError(f"labels and meta.csv rows {n_rows}, want 50 each")
+            if not (math.isfinite(result["per_pct"]) and 0 <= result["per_pct"] <= 100):
+                raise AssertionError(f"PER {result['per_pct']}")
+            if printed != f"| PER: {100 * per:.2f}%" or round(100 * per, 3) != result["per_pct"]:
+                raise AssertionError(f"get_pron_error printed {printed!r} for per_eval's {result['per_pct']}")
+            if probe is None or "error" in probe or not math.isfinite(probe["per_pct"]):
+                raise AssertionError(f"the held-in probe failed: {probe}")
+            report.update(per=result, seconds=total_s, binarize_s=built["seconds"], items=st["items"],
+                          ms_per_test_utterance=ms_utt, launches_per_step=kinds)
+
+            say("phase 15c: tools.attn_probe on 15b's experiment")
+            torch.cuda.synchronize()
+            zero_launch_counts()
+            t = time.perf_counter()
+            probe_summary = attn_probe.main(["--exp", exp, "--root", root, "--n", str(PER_PROBE_N)])
+            torch.cuda.synchronize()
+            launches["attn_probe"] = launch_counts()
+            means = [v for k, m in probe_summary.items() if k.endswith("_means") for v in m.values()]
+            say(f"15c: {probe_summary} in {time.perf_counter() - t:.1f} s; launches {launches['attn_probe']}")
+            if (probe_summary["correct"] + probe_summary["wrong"] == 0 or not means
+                    or not all(math.isfinite(v) for v in means) or launches["attn_probe"] != (PER_PROBE_N, 0, 0)):
+                raise AssertionError(f"attn_probe: {probe_summary}, launches {launches['attn_probe']}")
+            report["attn_probe"] = probe_summary
+    finally:
+        per_eval.run_cli, per_eval.build_per_corpus, DictTTSTask.train_step = (
+            orig["run_cli"], orig["build"], orig["step"])
+        shutil.rmtree(work_dir, ignore_errors=True)
+    return report, launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(1100, exit=True)  # never outlive the run's limit
     say("phase 0: device")
@@ -3251,6 +3551,12 @@ def main() -> int:
         say("phase 14d: validation artifacts on phase 8's checkpoint")
         recipe_launches["validation_artifacts"] = validation_artifacts_phase(root, gen, smi)
         say(f"phase 14a, 14b and 14d done in {time.time() - t14:.1f} s, at {time.time() - T_START:.1f} s")
+        t15 = time.time()
+        say("phase 15a: reference-layout checkpoints (a seeded DictTTS at the recipe's widths, HiFi-GAN at 512 "
+            "channels) through tools.convert_torch_ckpt, DictTTSInferencer from them against the models in memory")
+        reference_report, recipe_launches["reference_import"] = reference_import_phase(root, binary, smi)
+        say("phase 15a report " + json.dumps(reference_report))
+        say(f"phase 15a done in {time.time() - t15:.1f} s, at {time.time() - T_START:.1f} s")
     say("phase 10d: one amp train step beside one f32 step on the card, same weights, batch and noise")
     recipe_launches["amp_vs_f32"] = amp_vs_f32_step(device, smi)
     say(f"phase 10 done at {time.time() - T_START:.1f} s")
@@ -3344,6 +3650,15 @@ def main() -> int:
         f"{EXPORT_BUCKETS}")
     recipe_launches["export"] = export_phase(smi)
     say(f"phase 14c done in {time.time() - t14:.1f} s, at {time.time() - T_START:.1f} s")
+
+    t15 = time.time()
+    say(f"phase 15b: tools.per_eval on the repo's stand-in dictionary, --n_items 300 --max_updates {PER_UPDATES} "
+        "--score_train: build, binarize on the card, train, --infer, score, slot diagnostics")
+    per_report, per_launches = per_pipeline_phase(smi)
+    recipe_launches.update(per_launches)
+    say("phase 15 report " + json.dumps({k: v for k, v in per_report.items() if k != "per"}))
+    say(f"phase 15b-c launches (K1, K2, K3) by run {per_launches}")
+    say(f"phase 15b-c done in {time.time() - t15:.1f} s, at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),

@@ -66,6 +66,17 @@ def load_wav(path: str) -> tuple[np.ndarray, int]:
     return data.astype(np.float32) / 32768.0, sr
 
 
+def build_generator(cfg: dict) -> HifiGanGenerator:
+    """A generator at the config's widths (the recipe's by default), drawn
+    from the global RNG."""
+    return HifiGanGenerator(
+        upsample_rates=tuple(cfg.get("upsample_rates", (8, 8, 2, 2))),
+        upsample_kernel_sizes=tuple(cfg.get("upsample_kernel_sizes", (16, 16, 4, 4))),
+        upsample_initial_channel=cfg.get("upsample_initial_channel", 512),
+        resblock_kernel_sizes=tuple(cfg.get("resblock_kernel_sizes", (3, 7, 11))),
+        resblock=str(cfg.get("resblock", "1")))
+
+
 @register_vocoder
 class HifiGanVocoder(BaseVocoder):
     """cfg: the generator's widths, ``vocoder_ckpt`` (a directory of this
@@ -89,12 +100,7 @@ class HifiGanVocoder(BaseVocoder):
                             cfg["vocoder_ckpt"], seed)
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
-            generator = HifiGanGenerator(  # the config's widths, the recipe's by default
-                upsample_rates=tuple(cfg.get("upsample_rates", (8, 8, 2, 2))),
-                upsample_kernel_sizes=tuple(cfg.get("upsample_kernel_sizes", (16, 16, 4, 4))),
-                upsample_initial_channel=cfg.get("upsample_initial_channel", 512),
-                resblock_kernel_sizes=tuple(cfg.get("resblock_kernel_sizes", (3, 7, 11))),
-                resblock=str(cfg.get("resblock", "1")))
+            generator = build_generator(cfg)
         if params is not None:
             generator.load_state_dict(params)
         # the parameters are cast once here; the JAX class casts at dispatch

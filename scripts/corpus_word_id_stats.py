@@ -1,11 +1,11 @@
 """Word ids per training batch of the repo's corpus, as the bank kernels
 (K1, K2) see them, against chip_smoke.py's "corpus" ids.
 
-    JAX_PLATFORMS=cpu python scripts/corpus_word_id_stats.py [--data .prod_corpus/binary]
+    python scripts/corpus_word_id_stats.py [--data .prod_corpus/binary]
 
-Runs on the CPU. Reads the training split with the JAX package's data
-pipeline (TTSBinaryDataset, TTSBatchProvider: the collater the recipe
-trains with) at the recipe's batch geometry (60 sentences, 64 word slots,
+Runs on the CPU. Reads the training split with the port's data pipeline
+(dicttts_tpu_torch.data.datasets: TTSBinaryDataset, TTSBatchProvider, the
+collater the recipe trains with) at the recipe's batch geometry (60 sentences, 64 word slots,
 the 512-frame bucket; .prod_corpus/soak.yaml), and prints for each batch
 the slots, the share of pad slots (word id 0), the distinct ids, the ids
 used once, and the most frequent id's count; then the same for
@@ -40,7 +40,7 @@ def main() -> int:
     import torch
 
     import chip_smoke
-    from dicttts_tpu.data.datasets import TTSBatchProvider, TTSBinaryDataset
+    from dicttts_tpu_torch.data.datasets import TTSBatchProvider, TTSBinaryDataset
 
     ds = TTSBinaryDataset(a.data, "train", CFG)
     rows = []

@@ -1,8 +1,12 @@
-"""Import hygiene of the port: every module of dicttts_tpu_torch, and
-chip_smoke.py, imports in a fresh interpreter where ``jax`` and the JAX
-package cannot be imported (their ``sys.modules`` entries set to None, so
-any import of them, lazy ones at module level included, raises)."""
+"""Import hygiene of the port: every module of dicttts_tpu_torch (its
+``tools`` included), chip_smoke.py and the port's scripts
+(scripts/torch_*.py, scripts/corpus_word_id_stats.py,
+scripts/make_sandhi_fixture.py) import in a fresh interpreter where ``jax``
+and the JAX package cannot be imported (their ``sys.modules`` entries set
+to None, so any import of them, lazy ones at module level included,
+raises)."""
 
+import glob
 import os
 import pkgutil
 import subprocess
@@ -21,11 +25,19 @@ def _port_modules():
     return names
 
 
+def _port_scripts():
+    scripts = sorted(glob.glob(os.path.join(ROOT, "scripts", "torch_*.py")))
+    return [os.path.abspath(p) for p in scripts + [os.path.join(ROOT, "scripts", name) for name in (
+        "corpus_word_id_stats.py", "make_sandhi_fixture.py")]]
+
+
 def test_every_port_module_imports_without_jax_or_the_jax_package():
     modules = _port_modules() + ["chip_smoke"]
+    scripts = _port_scripts()
     assert len(modules) > 50 and "dicttts_tpu_torch.models.post_glow" in modules
+    assert "dicttts_tpu_torch.tools.per_eval" in modules and len(scripts) >= 7
     script = "\n".join([
-        "import importlib, sys",
+        "import importlib, importlib.util, sys",
         *(f"sys.modules[{name!r}] = None" for name in BLOCKED),
         "failed = []",
         f"for name in {modules!r}:",
@@ -33,6 +45,12 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
         "        importlib.import_module(name)",
         "    except Exception as e:",
         "        failed.append(f'{name}: {type(e).__name__}: {e}')",
+        f"for i, path in enumerate({scripts!r}):",
+        "    try:",
+        "        spec = importlib.util.spec_from_file_location(f'port_script_{i}', path)",
+        "        spec.loader.exec_module(importlib.util.module_from_spec(spec))",
+        "    except Exception as e:",
+        "        failed.append(f'{path}: {type(e).__name__}: {e}')",
         f"leaked = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r} and sys.modules[m] is not None]",
         "print('\\n'.join(failed + leaked))",
         "sys.exit(1 if failed or leaked else 0)",
