@@ -32,7 +32,7 @@ Phases, each announced on its own line:
     own), with the distinct rows and the kernels' chunks of slots;
  7. training at production width (the recipe's DictTTSTask, seeded random
     weights, the recipe's bf16 device bank, dropout on): synthetic batches of B=60,
-    Tw=64, 512 frames; 2 warm-up and 20 timed steps; K1 and K2 launched
+    Tw=64, 512 frames; 2 warm-up and 10 timed steps; K1 and K2 launched
     once per step, K3 never; then 3 steps under torch.profiler (top
     kernels, convolutions by shape, the device's idle share) and 5 with
     cuDNN autotuning, for comparison;
@@ -190,12 +190,31 @@ Phases, each announced on its own line:
     quality claimed); (c) ``tools.attn_probe`` on (b)'s experiment: slot
     counts, finite statistics, K1 once a test utterance.
 
+16. the trainer's grouped dispatch (``steps_per_dispatch``): (a, inside
+    phase 8's directory, after 15a) run.main of the recipe on phase 8's
+    corpus for 20 steps at K = 1 and K = 16, in f32 and under amp, the
+    discriminator from step 10 (so both graph keys, generator-only and
+    GAN, occur), deterministic kernels: every step's losses and the final
+    weights, Adam moments, counts and lr equal to the bit; (b) the graphs
+    captured with their keys (batch shapes, gates), capture seconds,
+    replays, K1/K2 launches a step with the replays counted, peak memory
+    and step ms by shape and by how the step ran (eager, captured,
+    replayed) for both K, steady_per_step_s; (c) the recipe's task at full
+    width on the seeded bf16 bank, 8 synthetic 16 x 32 x 256 steps with a
+    NaN in step 6's mels, K = 1 against K = 4 (the NaN step a replay inside
+    a group): losses and final state equal to the bit, the update skipped;
+    (d) in (a)'s f32 K = 16 run, the checkpoint at step 10, written on a
+    thread while steps 11-20 ran, against the state read synchronously at
+    step 10, bit for bit, with the ms save() held the loop and the
+    thread's seconds. Phases 8-10, 14a and 15b reach graphs too: their
+    run.main calls take the config's steps_per_dispatch.
+
 Before the last line it prints one JSON line of kernel results
 ({"kernels": [...], "corpus": "repo" or "synthetic"}) and the total
 seconds; the last line is {"ok": true, "device": {...}}. Any failure raises
 and exits non-zero; so does a machine without CUDA. Nothing is written
 outside the gitignored build directory dicttts_tpu_torch/_build/, the
-temporary directories that phases 7b, 8, 9, 10, 11, 12, 13, 14 and 15
+temporary directories that phases 7b, 8, 9, 10, 11, 12, 13, 14, 15 and 16
 remove, and phase 15b's work dir checkpoints/per_eval_chip_smoke<pid>,
 which it removes.
 """
@@ -241,7 +260,7 @@ AMP_CHECK_CFG = dict(word_size=40, hidden_size=16, num_heads=2, enc_ffn_kernel_s
 JAX_AMP_LOSS_GAP = 1.738e-3
 BATCHES = ((1, 32), (4, 48), (16, 64))  # (requests, word slots per request)
 TRAIN_B, TRAIN_TW, TRAIN_T = 60, 64, 512  # recipe max_sentences 60, the 512-frame bucket
-TRAIN_WARMUP, TRAIN_STEPS = 2, 20
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10  # few timed steps: the whole run stays near half its time limit
 REPO = os.path.dirname(os.path.abspath(__file__))
 RECIPE_CONFIG = "dicttts_tpu_torch/configs/datasets/biaobei/dict_tts.yaml"
 RECIPE_STEPS, RESUME_STEPS = 16, 2  # two epochs of the train split's 8 batches
@@ -288,6 +307,14 @@ VOC_CHUNK = 16  # wavs in the chunk run on the card and on the CPU
 # phase 15: per_eval's updates (its sentences: tests/per_standin_text.json's n_items) and the
 # test utterances attn_probe reads
 PER_UPDATES, PER_PROBE_N = 200, 30
+# phase 16: the recipe's runs at K = 1 and K = GRAPH_K, by precision: their steps, the discriminator's
+# start inside them, and the replays each graph of the K = GRAPH_K run must reach. The corpus has 8
+# shapes an epoch: in f32 (whose steps from 49 sentences take 1-2 s) the graphs of both gates replay
+# once; under amp each of the 8 discriminator-step graphs replays twice after its capture.
+# 16c's synthetic same-shape steps (B, Tw, T), the ones with a NaN (the last step among them), its K
+GRAPH_K = 16
+GRAPH_RUNS = {"f32": (20, 10, 1), "amp": (36, 4, 3)}
+NAN_STEPS, NAN_AT, NAN_K, NAN_SHAPE = 8, (5, 7), 4, (16, 32, 256)
 # a frame whose normalized ACF spans less than this over the lag band has no
 # peak (seeded tones: voiced frames span 1.2 at their 1st percentile, frames
 # at a silence's edge 1e-6 to 2e-3)
@@ -2335,25 +2362,6 @@ def portaspeech_card_vs_cpu(smi):
     return worst
 
 
-@contextlib.contextmanager
-def synced_steps(cls):
-    """``cls.train_step`` followed by ``torch.cuda.synchronize()``, so that
-    the trainer's step ms is the card's step and not the host's enqueue (a
-    FastSpeech2Task step never waits for the card)."""
-    step = cls.train_step
-
-    def synced(self, *args, **kwargs):
-        out = step(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        return out
-
-    cls.train_step = synced
-    try:
-        yield
-    finally:
-        cls.train_step = step
-
-
 def fs2_widths(task) -> str:
     c, m = task.cfg, task.model
     return (f"encoder {c['encoder_type']} ({c['enc_layers']} layers, ffn k{c['enc_ffn_kernel_size']}), "
@@ -2365,20 +2373,17 @@ def fs2_widths(task) -> str:
 
 def fastspeech2_recipe(root, binary, smi):
     """Phase 13a: configs/datasets/biaobei/fs2.yaml through run.main on the
-    corpus: FS2_STEPS steps with validations and checkpoints (each step
-    synchronized, for its time), a profiled step of the largest batch and
+    corpus: FS2_STEPS steps with validations and checkpoints (each group
+    of steps ends synchronized, for its time), a profiled step of the largest batch and
     one of the shape whose repeats were slowest, a resume for FS2_RESUME
     more, --infer over the test split. Returns the
     report, the launch counts of each run, the recipe's config and the
     largest batch (host arrays)."""
-    from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
-
     hp = (f"binary_data_dir={binary},max_updates={FS2_STEPS},val_check_interval={FS2_STEPS // 2},"
           "num_sanity_val_steps=1")
     torch.cuda.reset_peak_memory_stats()
     t = time.time()
-    with synced_steps(FastSpeech2Task):
-        trainer, task, train_launches = run_main(root, "fs2", hp, config=FS2_CONFIG)
+    trainer, task, train_launches = run_main(root, "fs2", hp, config=FS2_CONFIG)  # a group ends synchronized
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"fs2: {fs2_widths(task)}")
     say(f"fs2: run.main trained {trainer.global_step} steps in {time.time() - t:.1f} s (validations and "
@@ -2412,9 +2417,8 @@ def fastspeech2_recipe(root, binary, smi):
     profile_launches = launch_counts()
     cfg = dict(task.cfg)
     del trainer, task
-    with synced_steps(FastSpeech2Task):
-        trainer, task, resume_launches = run_main(root, "fs2", f"max_updates={FS2_STEPS + FS2_RESUME}",
-                                                  config=FS2_CONFIG)
+    trainer, task, resume_launches = run_main(root, "fs2", f"max_updates={FS2_STEPS + FS2_RESUME}",
+                                              config=FS2_CONFIG)
     report["resume"] = step_report(trainer.history, "fs2 resume", smi)
     if [h["step"] for h in trainer.history] != [FS2_STEPS + i + 1 for i in range(FS2_RESUME)]:
         raise AssertionError("the resumed fs2 run did not continue from its checkpoint")
@@ -2831,7 +2835,7 @@ def update_atol(task) -> dict:
     for i, (mod, opt) in enumerate(((task.model, task.opt_g), (task.disc, task.opt_d))):
         top = max(float(p.grad.abs().max()) for p in mod.parameters() if p.grad is not None)
         group = opt.param_groups[0]
-        lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+        lr, eps, b2 = float(group["lr"]), group["eps"], group["betas"][1]
         for n, p in mod.named_parameters():
             if p not in opt.state:
                 out[f"{i}.{n}"] = 1e-6
@@ -2906,7 +2910,7 @@ def ddp_two_ranks(binary, smi):
     worst_loss, worst_param, over = (0.0, ""), 0.0, {}
     n_params = sum(v.numel() for v in ref["params"].values())
     opts = (ref["task"].opt_g, ref["task"].opt_d)
-    lr_max = 2 * TWO_RANK_STEPS * max(g["lr"] for o in opts for g in o.param_groups)
+    lr_max = 2 * TWO_RANK_STEPS * max(float(g["lr"]) for o in opts for g in o.param_groups)
     for r, res in enumerate(ranks):
         for i, (got, want) in enumerate(zip(res["metrics"], ref["metrics"])):
             if set(got) != set(want):
@@ -3082,6 +3086,303 @@ def validation_artifacts_phase(root, gen, smi):
     return n
 
 
+# -- phase 16: K-step groups as CUDA-graph replays of the Dict-TTS step, the background checkpoint ----
+
+def to_cpu(tree):
+    """``tree`` (nested dicts, lists, tuples) with its tensors copied to the host."""
+    from dicttts_tpu_torch.utils.checkpoint import map_tensors
+
+    return map_tensors(tree, lambda t: t.detach().cpu())
+
+
+@contextlib.contextmanager
+def hooked_steps(on_step):
+    """Call ``on_step(metrics, launches)`` after every train step of an
+    adversarial task, whether it ran eagerly or as a graph replay, with the
+    (K1, K2, K3) launches it added; a graph's capture, which runs no step,
+    is none."""
+    from dicttts_tpu_torch.train.graphs import StepGraphs
+    from dicttts_tpu_torch.train.tasks.adv_base import AdversarialTTSTask
+
+    inside = [0]
+    eager, replayed = AdversarialTTSTask.train_step, StepGraphs.step
+
+    def eager_step(self, *a, **kw):
+        before = launch_counts()
+        m = eager(self, *a, **kw)
+        if not inside[0]:
+            on_step(m, tuple(x - y for x, y in zip(launch_counts(), before)))
+        return m
+
+    def graph_step(self, *a, **kw):
+        before = launch_counts()
+        inside[0] += 1
+        try:
+            m = replayed(self, *a, **kw)
+        finally:
+            inside[0] -= 1
+        on_step(m, tuple(x - y for x, y in zip(launch_counts(), before)))
+        return m
+
+    AdversarialTTSTask.train_step, StepGraphs.step = eager_step, graph_step
+    try:
+        yield
+    finally:
+        AdversarialTTSTask.train_step, StepGraphs.step = eager, replayed
+
+
+@contextlib.contextmanager
+def recorded_steps():
+    """Every train step's metrics, as device copies queued after the step (no
+    host read), eager or replayed."""
+    out = []
+    with hooked_steps(lambda m, _: out.append({k: v.detach().clone() for k, v in m.items()})):
+        yield out
+
+
+def graph_report_lines(label, trainer, steps, launches, val_batches, smi):
+    """Print a run's graphs, capture seconds, replays, K1/K2 a step and
+    steady_per_step_s; returns them as a dict."""
+    rep = trainer.graph_report or {"graphs": [], "replays": 0, "capture_s": 0.0, "eager_steps": steps}
+    for g in rep["graphs"]:
+        shapes = {k: v for k, v in g["key"][0].items() if k in ("mel2word", "word_tokens")}
+        say(f"{label} graph {shapes} gates (adv_on, disc_on) {tuple(g['key'][1])}: captured in "
+            f"{g['capture_s'] * 1e3:.1f} ms ({g['free_gib']:.2f} GiB free on the card, {g['reserved_gib']:.2f} "
+            f"reserved by the allocator before it), replayed {g['replays']} times, K1/K2 nodes {g['nodes']}")
+    by_run = {}
+    for h in trainer.history:  # groups all of one kind, so that step_ms is theirs
+        if all(o["run"] == h["run"] for o in trainer.history if o["group"] == h["group"]):
+            by_run.setdefault((h["run"], f"{h['sentences']}x{h['frames']}"), []).append(round(h["step_ms"], 1))
+    for (how, shape), ms in sorted(by_run.items()):
+        say(f"{label} {how} steps at {shape}: ms {ms}")
+    k1, k2, k3 = launches
+    per_step = ((k1 - val_batches) / steps, k2 / steps)
+    say(f"{label}: {len(rep['graphs'])} graphs, {rep['replays']} replays, {rep['eager_steps']} eager steps, "
+        f"capture {rep['capture_s']:.2f} s; K1 {k1} ({val_batches} of them validation), K2 {k2}: "
+        f"{per_step[0]:g} and {per_step[1]:g} a train step, replays included; steady_per_step_s "
+        f"{trainer.steady_per_step_s}; on {smi}")
+    if per_step != (1.0, 1.0) or k3:
+        raise AssertionError(f"{label}: K1/K2 not once a step ({launches}, {val_batches} validation batches)")
+    return {"graphs": rep["graphs"], "replays": rep["replays"], "capture_s": rep["capture_s"],
+            "eager_steps": rep["eager_steps"], "steady_per_step_s": trainer.steady_per_step_s,
+            "step_ms_by_run": {f"{how} {shape}": ms for (how, shape), ms in sorted(by_run.items())}}
+
+
+def first_difference(a: list, b: list):
+    """(step, keys) of the first step whose metrics differ in any bit, or None."""
+    from dicttts_tpu_torch.utils.checkpoint import bit_differences
+
+    for i, (x, y) in enumerate(zip(a, b)):
+        diff = bit_differences(x, y)
+        if diff:
+            return i, diff
+    return None if len(a) == len(b) else (min(len(a), len(b)), ["steps"])
+
+
+def graph_recipe_runs(root, binary, smi):
+    """Phase 16a, b, d: run.main of the recipe on phase 8's corpus at K = 1
+    and K = GRAPH_K, in f32 and under amp (GRAPH_RUNS: the steps, the
+    discriminator's start inside them), deterministic kernels: every step's
+    losses and the final state (weights, Adam moments, counts, lr) equal
+    bit for bit, and every graph of the grouped run replayed as often as
+    GRAPH_RUNS asks. The K = GRAPH_K f32 run's checkpoint at its validation
+    mark, written on a thread while the next steps ran, equals the state
+    taken synchronously at that step. Returns (report, launches by run)."""
+    from dicttts_tpu_torch.train.trainer import Trainer
+    from dicttts_tpu_torch.utils.checkpoint import bit_differences, checkpoint_path, load_checkpoint
+
+    report, launches, runs = {}, {}, {}
+    save = Trainer.save
+    sync_copies = {}
+
+    def saving(self, task, val_metrics):  # the state at the save, read synchronously
+        sync_copies[self.global_step] = to_cpu(task.state_dict())
+        return save(self, task, val_metrics)
+
+    with deterministic():
+        for prec, (n_steps, disc_start, least_replays) in GRAPH_RUNS.items():
+            mark = n_steps // 2
+            hp = (f"binary_data_dir={binary},max_updates={n_steps},val_check_interval={mark},"
+                  f"num_sanity_val_steps=0,disc_start_steps={disc_start},amp={prec == 'amp'}")
+            for k in (1, GRAPH_K):
+                label = f"{prec} K={k}"
+                sync_copies.clear()
+                Trainer.save = saving
+                try:
+                    with recorded_steps() as steps:
+                        torch.cuda.synchronize()
+                        torch.cuda.reset_peak_memory_stats()
+                        t = time.time()
+                        trainer, task, n = run_main(root, f"graphs_{prec}_k{k}", hp + f",steps_per_dispatch={k}")
+                        seconds = time.time() - t
+                        steps = to_cpu(steps)
+                finally:
+                    Trainer.save = save
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                val_batches = 2 * len(list(task.val_batches()))  # validations at the mark and at the end
+                say(f"{label}: {trainer.global_step} steps in {seconds:.1f} s, peak memory {peak:.2f} GiB, "
+                    f"launches (K1, K2, K3) {n}; on {smi}")
+                rep = graph_report_lines(label, trainer, n_steps, n, val_batches, smi)
+                rep.update(peak_gib=peak, seconds=seconds, train=step_report(trainer.history, label, smi))
+                if k > 1 and prec == "f32":
+                    ckpt_step, ckpt = load_checkpoint(checkpoint_path(os.path.join(root, task.cfg["work_dir"]), mark),
+                                                      "cpu")
+                    diff = bit_differences(ckpt, sync_copies[mark])
+                    save_rec = next(r for r in trainer.saves if r["step"] == mark)
+                    say(f"{label}: the checkpoint at step {ckpt_step}, written on a thread while steps "
+                        f"{mark + 1}-{n_steps} ran, against the state read synchronously at step {mark}: "
+                        f"{len(diff)} tensors differ; save() held the loop {save_rec['hold_ms']:.1f} ms, the "
+                        f"thread wrote for {save_rec['write_s']:.2f} s; on {smi}")
+                    if ckpt_step != mark or diff:
+                        raise AssertionError(f"the background checkpoint differs from its step's state: {diff[:5]}")
+                    rep["background_save"] = {"hold_ms": save_rec["hold_ms"], "write_s": save_rec["write_s"]}
+                vals, finite = finite_run(trainer, task)
+                if not (finite and trainer.global_step == n_steps and len(steps) == n_steps):
+                    raise AssertionError(f"{label}: not {n_steps} finite steps ({len(steps)} recorded)")
+                if k > 1 and (not rep["graphs"] or min(g["replays"] for g in rep["graphs"]) < least_replays):
+                    raise AssertionError(f"{label}: not every graph replayed {least_replays} times: "
+                                         f"{[g['replays'] for g in rep['graphs']]}")
+                runs[label] = {"steps": steps, "state": to_cpu(task.state_dict())}
+                report[label], launches[f"graphs_{label}"] = rep, n
+                del trainer, task
+                torch.cuda.empty_cache()
+            one, grouped = runs[f"{prec} K=1"], runs[f"{prec} K={GRAPH_K}"]
+            step_diff = first_difference(one["steps"], grouped["steps"])
+            state_diff = bit_differences(one["state"], grouped["state"])
+            say(f"{prec}: K={GRAPH_K} against K=1 over {n_steps} steps (the discriminator from step {disc_start}): "
+                f"first step whose losses differ {step_diff}, final-state tensors that differ {len(state_diff)} "
+                f"(the weights, both Adam moments, the counts and the lr; bit for bit); on {smi}")
+            if step_diff or state_diff:
+                raise AssertionError(f"{prec}: K={GRAPH_K} differs from K=1: {step_diff} {state_diff[:5]}")
+            report[f"{prec} equal to the bit"] = True
+    return report, launches
+
+
+@contextlib.contextmanager
+def profiled_graph_steps(first, last, out):
+    """torch.profiler (CUDA activity) over the graph runner's calls first to
+    last (0-based calls of ``StepGraphs.step``: a key's eager warm-up, its
+    capture with the first replay, the replays). ``out`` gets how each ran,
+    the (K1, K2, K3) launches the wrappers' counts added over them, and the
+    device kernels the trace holds, by name with their counts. The session
+    opens with a pause and spin kernels, which take the records a session
+    drops first (``device_kernel_ms``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dicttts_tpu_torch.train.graphs import StepGraphs
+
+    step, calls = StepGraphs.step, [0]
+    prof = profile(activities=[ProfilerActivity.CUDA])
+
+    def profiled(self, *a, **kw):
+        i = calls[0]
+        calls[0] += 1
+        if i == first:
+            torch.cuda.synchronize()
+            prof.start()
+            time.sleep(0.002)
+            for n in (1 << 21, *(1000,) * 32):
+                torch.cuda._sleep(n)
+            out["before"] = launch_counts()
+        m = step(self, *a, **kw)
+        if first <= i <= last:
+            out.setdefault("runs", []).append(self.last)
+        if i == last:
+            torch.cuda.synchronize()
+            out["launches"] = tuple(x - y for x, y in zip(launch_counts(), out.pop("before")))
+            prof.stop()
+            out["kernels"] = {e.key: e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+        return m
+
+    StepGraphs.step = profiled
+    try:
+        yield out
+    finally:
+        StepGraphs.step = step
+
+
+def graph_nan_skip(smi):
+    """Phase 16c: the recipe's task at full width on the seeded bf16 bank,
+    NAN_STEPS synthetic steps of one shape with a NaN in the mels of the
+    batches NAN_AT, the last step among them: at K = NAN_K those steps are
+    graph replays inside a group. Every step's losses and the final state
+    (the lr included) equal K = 1's bit for bit, the skipped steps left the
+    generator's update count short by theirs. A third run at K = NAN_K
+    runs its capture and replays under torch.profiler (apart, so that the
+    profiler's cost stays out of the timed runs): the trace holds as many
+    K1 and K2 kernels as the wrappers' counts added for them, and its state
+    equals K = 1's too. Returns (report, launches)."""
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+    from dicttts_tpu_torch.train.trainer import Trainer
+    from dicttts_tpu_torch.utils.checkpoint import bit_differences
+
+    B, Tw, T = NAN_SHAPE
+    batches = make_train_batches(np.random.RandomState(SEED + 16), NAN_STEPS, B, Tw, T, BANK_V)
+    for i in NAN_AT:
+        batches[i]["mels"][1, 7, 11] = np.nan
+    nan_steps = [i + 1 for i in NAN_AT]
+    bank = make_bank(torch.device("cuda"), torch.Generator(device="cuda").manual_seed(SEED + 16))
+    runs, launches, report = {}, {}, {}
+    with deterministic(), tempfile.TemporaryDirectory(prefix="chip_smoke_graph_nan_") as work:
+        for k, profiled in ((1, False), (NAN_K, False), (NAN_K, True)):
+            trainer = Trainer(os.path.join(work, f"k{k}{'p' if profiled else ''}"), max_updates=NAN_STEPS,
+                              val_check_interval=10 ** 6, num_sanity_val_steps=0, device="cuda",
+                              steps_per_dispatch=k)
+            task = DictTTSTask({}, bank=bank, device="cuda")
+            label = f"16c K={k}{' profiled' if profiled else ''}"
+            trace_cm = profiled_graph_steps(1, NAN_STEPS - 1, {}) if profiled else contextlib.nullcontext({})
+            with recorded_steps() as steps, trace_cm as trace:
+                torch.cuda.synchronize()
+                zero_launch_counts()
+                trainer.fit(task, batches, batches[:1])
+                torch.cuda.synchronize()
+                steps = to_cpu(steps)
+            launches[f"graphs_nan k={k}{' profiled' if profiled else ''}"] = launch_counts()
+            rep = graph_report_lines(label, trainer, NAN_STEPS, launch_counts(), 1, smi)
+            groups = [h["group_size"] for h in trainer.history]
+            how = [trainer.history[i]["run"] for i in NAN_AT]
+            lrs = [float(opt.param_groups[0]["lr"]) for opt in (task.opt_g, task.opt_d)]
+            say(f"{label}: group sizes {groups}; steps {nan_steps} (NaN) in groups "
+                f"{[trainer.history[i]['group'] for i in NAN_AT]}, run {how}; updates (generator, discriminator) "
+                f"{task.updates_g}, {task.updates_d}; lr (generator, discriminator) {lrs}; step ms "
+                f"{[round(h['step_ms'], 1) for h in trainer.history]}; on {smi}")
+            if (any(math.isfinite(float(steps[i]["total_loss"])) for i in NAN_AT)
+                    or task.updates_g != NAN_STEPS - len(NAN_AT)):
+                raise AssertionError(f"{label}: the NaN steps were not skipped")
+            if k > 1 and (min(groups[i] for i in NAN_AT) < 2 or set(how) != {"replayed"}):
+                raise AssertionError(f"16c: the NaN steps did not run as replays inside a group: {how}")
+            if profiled:
+                count = {name: sum(n for key, n in trace["kernels"].items() if f"{name}_kernel" in key)
+                         for name in ("s2pa_bank_fwd", "s2pa_bank_bwd")}
+                say(f"{label}: torch.profiler over steps 2-{NAN_STEPS} (run {trace['runs']}): the trace holds "
+                    f"{count['s2pa_bank_fwd']} K1 and {count['s2pa_bank_bwd']} K2 kernels, the wrappers' counts "
+                    f"added (K1, K2, K3) {trace['launches']}; {sum(trace['kernels'].values())} device kernels "
+                    f"in all; on {smi}")
+                if (set(trace["runs"][1:]) != {"replayed"}
+                        or (count["s2pa_bank_fwd"], count["s2pa_bank_bwd"], 0) != trace["launches"]
+                        or trace["launches"][:2] != (NAN_STEPS - 1, NAN_STEPS - 1)):
+                    raise AssertionError(f"16c: the replays' K1/K2 kernels in the trace {count} disagree with "
+                                         f"the counts {trace['launches']}")
+                rep["profiled"] = {"runs": trace["runs"], "trace_k1_k2": [count["s2pa_bank_fwd"],
+                                                                          count["s2pa_bank_bwd"]],
+                                   "counted": list(trace["launches"])}
+            runs[label] = {"steps": steps, "state": to_cpu(task.state_dict())}
+            report[label[4:]] = {**rep, "groups": groups, "lr": lrs}
+            del task, trainer
+            torch.cuda.empty_cache()
+    one = runs["16c K=1"]
+    for label, run in list(runs.items())[1:]:
+        step_diff = first_difference(one["steps"], run["steps"])
+        state_diff = bit_differences(one["state"], run["state"])
+        say(f"{label} against K=1 with NaNs at steps {nan_steps} (the last step a skipped replay): first step "
+            f"whose losses differ {step_diff}, final-state tensors that differ {len(state_diff)} (the lr "
+            f"included); on {smi}")
+        if step_diff or state_diff:
+            raise AssertionError(f"{label} differs from K=1 around the NaN steps: {step_diff} {state_diff[:5]}")
+    return report, launches
+
+
 # -- phase 15: reference checkpoints into the port, the PER pipeline, attention diagnostics ---------
 
 # the keys the JAX converter documents as unused (convert_dict_tts), at the recipe's hidden width
@@ -3212,7 +3513,6 @@ def per_pipeline_phase(smi):
     subprocess. Returns the report and the launches by run."""
     from dicttts_tpu_torch import run
     from dicttts_tpu_torch.tools import attn_probe, get_pron_error, per_eval
-    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
 
     with open(os.path.join(REPO, "tests", "per_standin_text.json"), encoding="utf-8") as f:
         table = json.load(f)
@@ -3220,7 +3520,7 @@ def per_pipeline_phase(smi):
     exp = f"per_eval_chip_smoke{os.getpid()}"
     work_dir = os.path.join(REPO, "checkpoints", exp)
     report, launches, runs, built, per_step = {}, {}, {}, {}, []
-    orig = {"run_cli": per_eval.run_cli, "build": per_eval.build_per_corpus, "step": DictTTSTask.train_step}
+    orig = {"run_cli": per_eval.run_cli, "build": per_eval.build_per_corpus}
 
     def build(*a, **k):
         t = time.perf_counter()
@@ -3246,25 +3546,19 @@ def per_pipeline_phase(smi):
             runs[f"{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
             launches[f"per_eval_{name}"] = launch_counts()
 
-    def counted_step(self, batch, generator=None, **kw):
-        before = launch_counts()
-        out = orig["step"](self, batch, generator, **kw)
-        per_step.append(tuple(a - b for a, b in zip(launch_counts(), before)))
-        return out
-
-    per_eval.run_cli, per_eval.build_per_corpus, DictTTSTask.train_step = run_cli, build, counted_step
+    per_eval.run_cli, per_eval.build_per_corpus = run_cli, build
     try:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_per_") as tmp:
             root = os.path.join(tmp, "corpus")
             t = time.perf_counter()
-            result = per_eval.main(
-                ["--dict", os.path.join(REPO, table["dict"]), "--root", root, "--test_set",
-                 os.path.join(tmp, "test_set.json"), "--out", os.path.join(tmp, "per.json"),
-                 "--tag", exp[len("per_eval_"):], "--n_items", str(table["n_items"]),
-                 "--max_updates", str(PER_UPDATES), "--score_train", "--device", "cuda"], text=fixed)
+            with hooked_steps(lambda _, n: per_step.append(n)):  # each step's launches, replays included
+                result = per_eval.main(
+                    ["--dict", os.path.join(REPO, table["dict"]), "--root", root, "--test_set",
+                     os.path.join(tmp, "test_set.json"), "--out", os.path.join(tmp, "per.json"),
+                     "--tag", exp[len("per_eval_"):], "--n_items", str(table["n_items"]),
+                     "--max_updates", str(PER_UPDATES), "--score_train", "--device", "cuda"], text=fixed)
             total_s = time.perf_counter() - t
-            per_eval.run_cli, per_eval.build_per_corpus, DictTTSTask.train_step = (
-                orig["run_cli"], orig["build"], orig["step"])
+            per_eval.run_cli, per_eval.build_per_corpus = orig["run_cli"], orig["build"]
             st = built["binarizer"].stats
             say(f"15b corpus: {result['provenance']['n_heteronym_chars']} heteronyms, "
                 f"{result['provenance']['heteronym_slots']} slots, {result['provenance']['distinct_syllables']} "
@@ -3348,8 +3642,7 @@ def per_pipeline_phase(smi):
                 raise AssertionError(f"attn_probe: {probe_summary}, launches {launches['attn_probe']}")
             report["attn_probe"] = probe_summary
     finally:
-        per_eval.run_cli, per_eval.build_per_corpus, DictTTSTask.train_step = (
-            orig["run_cli"], orig["build"], orig["step"])
+        per_eval.run_cli, per_eval.build_per_corpus = orig["run_cli"], orig["build"]
         shutil.rmtree(work_dir, ignore_errors=True)
     return report, launches
 
@@ -3557,6 +3850,18 @@ def main() -> int:
         reference_report, recipe_launches["reference_import"] = reference_import_phase(root, binary, smi)
         say("phase 15a report " + json.dumps(reference_report))
         say(f"phase 15a done in {time.time() - t15:.1f} s, at {time.time() - T_START:.1f} s")
+        t16 = time.time()
+        say(f"phase 16a-b, d: run.main of the recipe at K=1 and K={GRAPH_K} (steps_per_dispatch), by precision "
+            f"(steps, the discriminator's start, each graph's least replays) {GRAPH_RUNS}, deterministic "
+            "kernels; the checkpoint written on a thread")
+        graph_report, graph_launches = graph_recipe_runs(root, binary, smi)
+        say(f"phase 16c: {NAN_STEPS} same-shape steps {NAN_SHAPE} with NaNs at steps {[i + 1 for i in NAN_AT]}, "
+            f"K=1 and K={NAN_K}, the K={NAN_K} replays under torch.profiler")
+        graph_report["nan_skip"], nan_launches = graph_nan_skip(smi)
+        recipe_launches.update(graph_launches)
+        recipe_launches.update(nan_launches)
+        say("phase 16 report " + json.dumps(graph_report))
+        say(f"phase 16 done in {time.time() - t16:.1f} s, at {time.time() - T_START:.1f} s")
     say("phase 10d: one amp train step beside one f32 step on the card, same weights, batch and noise")
     recipe_launches["amp_vs_f32"] = amp_vs_f32_step(device, smi)
     say(f"phase 10 done at {time.time() - T_START:.1f} s")

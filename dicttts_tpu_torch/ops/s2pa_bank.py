@@ -22,7 +22,8 @@ plain versions build is never written. The sources
 
 ``s2pa_bank_fwd`` and ``s2pa_bank_bwd`` take the plain version for CPU
 tensors and launch the kernel for CUDA tensors; they never fall back from
-one to the other.
+one to the other. Each counts its launches with ``ops/launches.py``'s
+``count_launch``, graph replays included.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import numpy as np
 import torch
 
 from dicttts_tpu_torch.ops import cuda_build
+from dicttts_tpu_torch.ops.launches import count_launch
 
 MASK_VALUE = -1e9
 _BANK_DTYPES = (torch.bfloat16, torch.float32)
@@ -192,11 +194,11 @@ def _fwd(bank, wt, qe, km, mask, slots):
                 int(bank.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
             )
         cuda_build.check_launch("s2pa_bank_fwd", rc)
-        s2pa_bank_fwd.launches += 1
+        count_launch(s2pa_bank_fwd)
     return ctx, w
 
 
-s2pa_bank_fwd.launches = 0
+s2pa_bank_fwd.launches = s2pa_bank_fwd.captured = 0
 
 
 def s2pa_bank_bwd(bank, wt, qe, km, mask, g_ctx, g_w):
@@ -234,11 +236,11 @@ def _bwd(bank, wt, qe, km, mask, g_ctx, g_w, slots):
                 int(bank.dtype == torch.bfloat16), torch.cuda.current_stream(device).cuda_stream,
             )
         cuda_build.check_launch("s2pa_bank_bwd", rc)
-        s2pa_bank_bwd.launches += 1
+        count_launch(s2pa_bank_bwd)
     return d_qe
 
 
-s2pa_bank_bwd.launches = 0
+s2pa_bank_bwd.launches = s2pa_bank_bwd.captured = 0
 
 
 class S2PABankAttend(torch.autograd.Function):

@@ -21,6 +21,9 @@ same thing by three rules:
   non-finite skip), are the global values (``reduce_metrics``), so all
   ranks take the same branch and meet at the same collectives.
 
+Under NCCL these collectives run inside the trainer's captured CUDA graphs
+(``train/graphs.py``); gloo's cannot be captured (``check_graph_capture``).
+
 Batches are padded with zero rows to a multiple of the world size
 (``pad_batch_to_devices``, the JAX package's semantics; the providers cut
 most batches to that multiple already). A zero row has no tokens and no
@@ -271,6 +274,15 @@ def broadcast_state(tree) -> None:
         return
     with torch.no_grad():
         _flat_collective(_tensors(tree), lambda buf: dist.broadcast(buf, src=0))
+
+
+def check_graph_capture(what: str) -> None:
+    """Raise where a step's collectives cannot be captured in a CUDA graph:
+    NCCL's can; gloo copies CUDA tensors through the host."""
+    if initialized() and dist.get_backend() != "nccl":
+        raise ValueError(f"{what} captures the train step in CUDA graphs, but this process group's "
+                         f"{dist.get_backend()} backend copies CUDA tensors through the host, which a graph "
+                         "cannot capture: use NCCL (one process per card) or steps_per_dispatch=1")
 
 
 def barrier() -> None:

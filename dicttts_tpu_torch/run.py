@@ -18,7 +18,10 @@ trainer, then train, or with ``--infer`` run the test loop (Dict-TTS writes
         --config dicttts_tpu_torch/configs/datasets/biaobei/fs2.yaml --exp_name fs2_biaobei
 
 ``--device`` defaults to the card and raises without one; ``cpu`` runs the
-kernels' plain versions (for tests).
+kernels' plain versions (for tests). The config's ``steps_per_dispatch``
+(16 in ``configs/base.yaml``) groups the trainer's steps as the JAX
+trainer does; on the card a Dict-TTS step of a group replays a CUDA graph
+(``train/trainer.py``, ``train/graphs.py``).
 
 Data parallelism, the JAX package's mesh over every device: under
 ``torchrun`` (``WORLD_SIZE`` > 1) each process joins the group, ``cuda`` as
@@ -196,6 +199,7 @@ def _run(args, device):
         seed=cfg.get("seed", 1234),
         device=device,
         valid_infer_interval=cfg.get("valid_infer_interval"),
+        steps_per_dispatch=cfg.get("steps_per_dispatch", 1),
     )
     if args.infer:
         outputs = trainer.test(task)

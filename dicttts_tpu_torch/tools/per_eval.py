@@ -35,8 +35,9 @@ provenance in the result:
         [--out <root>/PER_<tag>.json] [--device cuda] [--score_train] [--fresh]
 
 The config written for the run (``<root>/per.yaml``) keeps the JAX
-script's ``steps_per_dispatch: 8``, which the port's trainer reads and
-ignores (each step launches on its own). Segmentation and sandhi need
+script's ``steps_per_dispatch: 8``: the port's trainer groups up to 8
+same-shape steps, and on the card replays each as a CUDA graph
+(``train/graphs.py``). Segmentation and sandhi need
 jieba; on a machine without it, ``main(argv, text=FixedText(table))`` takes
 both from a table computed ahead of time.
 """

@@ -21,10 +21,20 @@ One step, as in the JAX package:
    the discriminator is gated off (step < disc_start_steps, or step %
    disc_interval != 0) its optimizer and schedule do not step.
 
-torch's AdamW is optax's ``adamw`` rule: bias-corrected moments, eps added
-to the root of the second moment, decoupled weight decay applied as
-lr * wd * param. Parameters that got no gradient are stepped with a zero
-gradient, as optax does.
+The step never reads a device value on the host, so a CUDA graph can
+capture it (``train/graphs.py``): the skip is decided on the card
+(``MaskedAdamW``, ``train/optim.py``: on a non-finite loss the weights,
+both moments and the update count keep their bits), the update counts
+are the optimizers' device counts (``updates_g`` and ``updates_d`` read
+them), and the schedules read them there. The gates are known on the host
+ahead of the step; they and the batch's shapes key a captured step
+(``step_key``). ``grad_norm_g`` is reported on a skipped
+step too. With ``accumulate_grad_batches`` > 1 the skip stays a host read
+(whether a micro-step joins the running mean decides the update), and
+such a step is not captured. MaskedAdamW is optax's ``adamw`` rule:
+bias-corrected moments, eps added to the root of the second moment,
+decoupled weight decay applied as lr * wd * param. Parameters that got no
+gradient are stepped with a zero gradient, as optax does.
 
 ``accumulate_grad_batches`` = k > 1 is optax ``MultiSteps`` around both
 optimizers, as in the JAX package: each micro-step folds its gradients into
@@ -48,7 +58,8 @@ the k-th micro-step with accumulation), and the reported losses are the
 global batch's.
 
 Batches reach the steps through ``to_device`` (host arrays to tensors on
-the task's device, transfer dtypes upcast) and ``prepare_batch``, which
+the task's device, through pinned memory on the card, transfer dtypes
+upcast) and ``prepare_batch``, which
 resolves frame-ref batches (``use_device_frame_cache``: ``item_idx`` in
 place of the mels) from the frame cache that ``attach_device_frame_cache``
 uploads once.
@@ -68,6 +79,7 @@ from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dty
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.parallel.mesh import all_reduce_grads, reduce_metrics
 from dicttts_tpu_torch.train import losses as L
+from dicttts_tpu_torch.train.optim import MaskedAdamW
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
 
 log = logging.getLogger("dicttts_tpu_torch.task")
@@ -99,17 +111,22 @@ def clip_by_global_norm_(grads, max_norm: float) -> torch.Tensor:
     return norm
 
 
-def optimizer_step(opt, params, max_norm: float, lr: float) -> torch.Tensor:
+def optimizer_step(opt, params, max_norm: float, lr, apply: torch.Tensor | None = None) -> torch.Tensor:
     """One optax-style update of ``params``: a parameter without a gradient
     steps with zero, the gradients are averaged over the data-parallel
     ranks (one collective; none without a process group), clipped to
     ``max_norm`` by their global norm, the lr is set, the optimizer steps.
+    A ``MaskedAdamW`` takes the lr as a device tensor too, and applies the
+    update only where the device bool ``apply`` is true (None: always).
     Returns the pre-clip norm."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     all_reduce_grads(params)
     norm = clip_by_global_norm_([p.grad for p in params], max_norm)
+    if isinstance(opt, MaskedAdamW):
+        opt.update(lr, apply)
+        return norm
     for group in opt.param_groups:
         group["lr"] = lr
     opt.step()
@@ -118,10 +135,17 @@ def optimizer_step(opt, params, max_norm: float, lr: float) -> torch.Tensor:
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
     """Host arrays (or tensors) to tensors on ``device``, with the transfer
-    dtypes upcast; other entries (``_meta``) pass through."""
+    dtypes upcast; other entries (``_meta``) pass through. To the card they
+    go from pinned memory without blocking the host (torch's host allocator
+    holds a pinned buffer until its copy ends)."""
+    def put(v):
+        t = torch.as_tensor(v)
+        if device.type == "cuda" and t.device.type == "cpu":
+            return (t if t.is_pinned() else t.pin_memory()).to(device, non_blocking=True)
+        return t.to(device)
+
     return upcast_transfer_dtypes({
-        k: torch.as_tensor(v).to(device) if isinstance(v, (np.ndarray, torch.Tensor)) else v
-        for k, v in batch.items()})
+        k: put(v) if isinstance(v, (np.ndarray, torch.Tensor)) else v for k, v in batch.items()})
 
 
 @contextlib.contextmanager
@@ -177,19 +201,46 @@ class AdversarialTTSTask:
         cfg = self.cfg
         betas = (cfg["optimizer_adam_beta1"], cfg["optimizer_adam_beta2"])
         opt_p = cfg["discriminator_optimizer_params"]
-        self.opt_g = torch.optim.AdamW(self.model.parameters(), lr=self.schedule_g(0), betas=betas,
-                                       eps=1e-8, weight_decay=cfg["weight_decay"])
-        self.opt_d = torch.optim.AdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
-                                       eps=opt_p["eps"], weight_decay=opt_p["weight_decay"])
+        self.opt_g = MaskedAdamW(self.model.parameters(), lr=self.schedule_g(0), betas=betas,
+                                 eps=1e-8, weight_decay=cfg["weight_decay"])
+        self.opt_d = MaskedAdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
+                                 eps=opt_p["eps"], weight_decay=opt_p["weight_decay"])
+        # the generator's update is tried at every step, and the first may be
+        # skipped on the card: its state exists from the start, never
+        # allocated inside a captured step. The discriminator's is allocated
+        # at its first update, which the host knows of (step_key).
+        self.opt_g.init_state()
         self.step = 0  # train steps (micro-steps) taken
-        self.updates_g = 0  # optimizer updates applied (the schedules' counts)
-        self.updates_d = 0
         # gradient accumulation (k > 1): each optimizer's running mean of its
         # micro-steps' gradients and the count of micro-steps in it
         self.acc = {}
         if self.accumulate > 1:
             self.acc = {name: {"grads": [torch.zeros_like(p) for p in m.parameters()], "n": 0}
                         for name, m in (("g", self.model), ("d", self.disc))}
+
+    @property
+    def updates_g(self) -> int:
+        """Generator updates applied (the schedule's count; a host read)."""
+        return self.opt_g.updates()
+
+    @property
+    def updates_d(self) -> int:
+        return self.opt_d.updates()
+
+    def step_key(self) -> tuple[bool, bool]:
+        """The next train step's gates, (adv_on, disc_on): the adversarial
+        term from disc_start_steps on, the discriminator's update on every
+        disc_interval-th of those steps. Known on the host ahead of the
+        step, they are what its captured graph depends on besides the
+        batch's shapes and dtypes."""
+        adv_on = self.step >= self.disc_start_steps and self.lambda_adv > 0
+        return adv_on, adv_on and self.step % self.disc_interval == 0
+
+    def step_key_live(self, key: tuple) -> bool:
+        """Whether a step of ``key`` (``step_key``) can still come: a
+        generator-only step (adv_on false) cannot once the discriminator
+        has started."""
+        return key[0] or self.step < self.disc_start_steps or self.lambda_adv <= 0
 
     def build_state(self, seed: int) -> None:
         """Seeded generator (``build_model()``) and discriminator on the
@@ -313,12 +364,16 @@ class AdversarialTTSTask:
             loss_f = L.row_mean(torch.square(y[B:]) * wv, lengths)
         return loss_r + loss_f, {"r": loss_r, "f": loss_f}
 
-    def _micro_step(self, name: str, opt, params, max_norm: float, schedule):
+    def _micro_step(self, name: str, opt, params, max_norm: float, schedule,
+                    apply: torch.Tensor | None = None):
         """Apply this micro-step's gradients (``.grad``; None counts as zero,
-        as optax counts it) to optimizer ``name`` ('g' or 'd'). k = 1: the
-        update at once. k > 1: fold them into the running mean; on the k-th
-        micro-step put the mean in ``.grad``, update, and reset. Returns the
-        pre-clip norm of an update, or None when no update was applied."""
+        as optax counts it) to optimizer ``name`` ('g' or 'd'), with its lr
+        ``schedule`` read at its device count. k = 1: the update at once,
+        applied where the device bool ``apply`` is true (None: always).
+        k > 1 (the caller has decided the skip on the host): fold them into
+        the running mean; on the k-th micro-step put the mean in ``.grad``,
+        update, and reset. Returns the pre-clip norm of an update, or None
+        when no update was tried."""
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
@@ -334,10 +389,8 @@ class AdversarialTTSTask:
                 p.grad.copy_(a)
                 a.zero_()
             acc["n"] = 0
-        count = f"updates_{name}"
-        norm = optimizer_step(opt, params, max_norm, schedule(getattr(self, count)))
-        setattr(self, count, getattr(self, count) + 1)
-        return norm
+        opt.init_state()
+        return optimizer_step(opt, params, max_norm, schedule(opt.count), apply)
 
     def train_step(self, batch: dict, generator: torch.Generator | None = None, *,
                    eps: torch.Tensor | None = None, start_frames_g=None, start_frames_d=None) -> dict:
@@ -345,12 +398,11 @@ class AdversarialTTSTask:
         masks, the posterior noise and the crop starts; ``eps`` and the two
         sets of crop starts (the generator's adversarial term, the
         discriminator loss) may be given instead. Returns the losses, and
-        the pre-clip gradient norm of each parameter set that was updated,
-        as device scalars."""
+        the pre-clip gradient norm of each parameter set whose update was
+        tried (the generator's also where the card skipped it), as device
+        scalars."""
         batch = self.prepare_batch(batch)
-        step = self.step
-        adv_on = step >= self.disc_start_steps and self.lambda_adv > 0
-        disc_on = adv_on and step % self.disc_interval == 0
+        adv_on, disc_on = self.step_key()
         self.model.train()
         self.disc.train()
         self.opt_g.zero_grad(set_to_none=True)
@@ -366,11 +418,12 @@ class AdversarialTTSTask:
         # the global batch's losses: every rank takes the same skip decision
         metrics = reduce_metrics({**{k: v.detach() for k, v in {**g_losses, **d_losses}.items()},
                                   "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()})
+        finite = torch.isfinite(metrics["total_loss"])
         updated = {}
-        if bool(torch.isfinite(metrics["total_loss"])):  # the step's one host sync
+        if not self.acc or bool(finite):  # with accumulation, a host read decides the skip
             updated["grad_norm_g"] = self._micro_step(
                 "g", self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
-                self.schedule_g)
+                self.schedule_g, None if self.acc else finite)
         if disc_on:
             updated["grad_norm_d"] = self._micro_step(
                 "d", self.opt_d, list(self.disc.parameters()), self.cfg["discriminator_grad_norm"],
@@ -400,12 +453,17 @@ class AdversarialTTSTask:
         return state
 
     def load_state_dict(self, state: dict) -> None:
+        """The update counts come with the optimizers' states (their
+        ``step``); ``updates_g`` / ``updates_d`` must agree with them."""
         self.model.load_state_dict(state["params_g"])
         self.disc.load_state_dict(state["params_d"])
         self.opt_g.load_state_dict(state["opt_g"])
         self.opt_d.load_state_dict(state["opt_d"])
-        self.step, self.updates_g, self.updates_d = (
-            int(state["step"]), int(state["updates_g"]), int(state["updates_d"]))
+        self.opt_g.init_state()
+        self.step = int(state["step"])
+        if (self.updates_g, self.updates_d) != (int(state["updates_g"]), int(state["updates_d"])):
+            raise ValueError(f"the checkpoint's update counts {state['updates_g']}, {state['updates_d']} "
+                             f"disagree with its optimizers' {self.updates_g}, {self.updates_d}")
         for name, acc in self.acc.items():
             saved = state[f"acc_{name}"]
             for a, v in zip(acc["grads"], saved["grads"], strict=True):

@@ -20,8 +20,9 @@ Port of ``dicttts_tpu/train/tasks/ps_flow.py`` (``PortaSpeechFlowTask``).
   optimizer trains the whole model (``adv_base.train_step``).
 
 A non-finite loss skips the update, as in the port's other tasks (the JAX
-task multiplies NaN gradients by 0, which leaves them NaN). Gradient
-accumulation with ``two_stage`` is not ported: it raises.
+task multiplies NaN gradients by 0, which leaves them NaN), decided on the
+card (``train/optim.py``): the step reads no device value on the host.
+Gradient accumulation with ``two_stage`` is not ported: it raises.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from dicttts_tpu_torch.parallel.mesh import reduce_metrics
+from dicttts_tpu_torch.train.optim import MaskedAdamW
 from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule
 
@@ -76,11 +78,15 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         c = self.cfg
         betas = (c["optimizer_adam_beta1"], c["optimizer_adam_beta2"])
         main, post = self.partition()
-        self.opt_g = torch.optim.AdamW(main, lr=self.schedule_g(0), betas=betas, eps=1e-8,
-                                       weight_decay=c["weight_decay"])
-        self.opt_pf = torch.optim.AdamW(post, lr=self.schedule_pf(0), betas=betas, eps=1e-8,
-                                        weight_decay=POST_GLOW_WEIGHT_DECAY)
-        self.updates_pf = 0
+        self.opt_g = MaskedAdamW(main, lr=self.schedule_g(0), betas=betas, eps=1e-8,
+                                 weight_decay=c["weight_decay"])
+        self.opt_pf = MaskedAdamW(post, lr=self.schedule_pf(0), betas=betas, eps=1e-8,
+                                  weight_decay=POST_GLOW_WEIGHT_DECAY)
+        # each state is allocated at its stage's first update, which the host knows of
+
+    @property
+    def updates_pf(self) -> int:
+        return self.opt_pf.updates() if self.staged else 0
 
     def _gen_losses(self, batch: dict, generator=None, train: bool = True, adv_w: float = 1.0,
                     eps=None, start_frames=None):
@@ -111,14 +117,14 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         metrics = {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
                                      "total_loss": loss.detach()}),
                    "post_stage": torch.tensor(float(post_on))}
-        if bool(torch.isfinite(metrics["total_loss"])):  # the step's one host sync; the global loss
-            main, post = self.partition()
-            if post_on:
-                metrics["grad_norm_pf"] = self._micro_step(
-                    "pf", self.opt_pf, post, self.cfg["generator_grad_norm"], self.schedule_pf)
-            else:
-                metrics["grad_norm_g"] = self._micro_step(
-                    "g", self.opt_g, main, self.cfg["generator_grad_norm"], self.schedule_g)
+        finite = torch.isfinite(metrics["total_loss"])  # the global loss: every rank skips alike
+        main, post = self.partition()
+        if post_on:
+            metrics["grad_norm_pf"] = self._micro_step(
+                "pf", self.opt_pf, post, self.cfg["generator_grad_norm"], self.schedule_pf, finite)
+        else:
+            metrics["grad_norm_g"] = self._micro_step(
+                "g", self.opt_g, main, self.cfg["generator_grad_norm"], self.schedule_g, finite)
         self.step += 1
         return metrics
 
@@ -132,4 +138,6 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         super().load_state_dict(state)
         if self.staged:
             self.opt_pf.load_state_dict(state["opt_pf"])
-            self.updates_pf = int(state["updates_pf"])
+            if self.updates_pf != int(state["updates_pf"]):
+                raise ValueError(f"the checkpoint's updates_pf {state['updates_pf']} disagrees with its "
+                                 f"optimizer's {self.updates_pf}")

@@ -40,19 +40,56 @@ validation) the task's ``validation_artifacts`` of the first validation
 batch: figures and audio. An artifact that fails logs a warning and never
 stops training.
 
-Not ported: the JAX trainer's ``steps_per_dispatch`` (K steps chained in
-one dispatch; here each step is launched on its own, the same math) and
-its checkpoint write on a thread beside the next steps.
+Steps are grouped as the JAX trainer groups them (its
+``steps_per_dispatch``, K): consecutive batches of one shape join a group
+until it holds K, the next batch's shape differs (that batch starts the
+next group), or the group reaches a validation mark or ``max_updates``.
+One difference: a re-queued batch that itself reaches ``max_updates``
+runs as a group of its own at once, where the JAX trainer joins it with
+the next batch of its shape and steps past ``max_updates``. (A re-queued
+batch at a validation mark joins the next batch as in the JAX trainer, and
+the group validates one step past the mark.)
+Logging fires when a group crosses a multiple of ``log_interval``
+(``global_step % log_interval < n_ran``) with the group's last step's
+metrics; validation, the checkpoint and the artifacts when it crosses a
+multiple of ``val_check_interval``. Inside a group the host reads nothing
+from the card; a group ends with one synchronization, and the metrics are
+read only where it logs or validates. On the card, for a task that
+declares its step capture-safe (``capture_safe``: ``DictTTSTask`` without
+gradient accumulation) and K > 1, every step runs through
+``train/graphs.py``: a key's first step eagerly, then replays of the
+step's CUDA graph. Other tasks, and every task on the CPU, run the steps
+of a group eagerly. K = 1 is one eager step a group: the same step, the
+same numbers. Under data parallelism only NCCL's collectives can be
+captured: a capture-safe task with K > 1 on the card under gloo raises.
+
+Each step's randomness (dropout masks, the posterior noise, crop starts)
+is a function of (seed, step, rank), whatever K is: ``step_generator``
+eagerly, the graphs' generator seeded alike before each replay. This
+differs on purpose from the JAX trainer, which splits a group's per-step
+keys from one key per group, so that there K changes the draws.
+
+``steady_per_step_s`` is the JAX trainer's pipelined seconds a step: the
+clock restarts after the first group's synchronization, and validation,
+checkpoint and artifact time is left out; None after a single group.
+
+Checkpoints are written on a thread beside the next steps
+(``utils/checkpoint.CheckpointWriter``): ``save`` takes a bit-exact
+snapshot of the state on the card, then returns; the thread copies it to
+the host and writes it. A pending write is joined before the next save,
+at the end of ``fit``, before ``test`` and before a resume reads the
+directory, and before the final barrier. ``saves`` records, per save, the
+milliseconds ``save`` held the loop and the thread's seconds.
 
 Each train step appends a record to ``history``: the step, its sentences
 and mel frames (the batch's shape), the milliseconds the loop waited for
-the batch, and the step's milliseconds on the host clock. A ``DictTTSTask``
-step waits for the card once, at the NaN check of the generator loss
-before its optimizer updates, so its time holds the previous step's
-updates and not its own; a ``HifiGanTask`` step never waits, so its time
-is the host's until the card's queue fills.
+the batch, its group's index and size, how it ran (``run``: "eager",
+"captured" (the capture, then its first replay) or "replayed"), and
+``step_ms``: the group's wall time, from its first step's launch to its
+end synchronization, divided by its steps. ``graph_report`` holds the graphs of the last ``fit`` (keys,
+capture seconds, replays, bank-kernel nodes).
 
-    trainer = Trainer(work_dir, max_updates=1000)          # device="cuda"
+    trainer = Trainer(work_dir, max_updates=1000, steps_per_dispatch=16)   # device="cuda"
     trainer.fit(task)
 """
 
@@ -69,8 +106,8 @@ import numpy as np
 import torch
 
 from dicttts_tpu_torch.parallel import mesh
-from dicttts_tpu_torch.utils.checkpoint import (get_last_checkpoint, load_checkpoint, read_extras,
-                                                save_checkpoint)
+from dicttts_tpu_torch.utils.checkpoint import (CheckpointWriter, get_last_checkpoint, load_checkpoint,
+                                                read_extras, snapshot)
 from dicttts_tpu_torch.utils.device import resolve_device
 from dicttts_tpu_torch.utils.prefetch import prefetch_iterator
 
@@ -98,12 +135,58 @@ def batch_frames(batch: dict) -> int:
     return int(np.shape(batch["mel2word"] if "mel2word" in batch else batch["mels"])[1])
 
 
+def _pinned(v):
+    """A host array as a tensor in pinned memory (other entries kept)."""
+    if isinstance(v, np.ndarray):
+        v = torch.from_numpy(np.ascontiguousarray(v))
+    if isinstance(v, torch.Tensor) and v.device.type == "cpu":
+        return v.pin_memory()
+    return v
+
+
+class _SteadyClock:
+    """The JAX trainer's pipelined seconds a step: counted from the end of
+    the first group (its synchronization; the group holds the first steps'
+    set-up), the blocks in ``left_out`` (validation, checkpoints, artifacts)
+    left out."""
+
+    def __init__(self):
+        self.start: float | None = None
+        self.steps = 0
+        self.excluded = 0.0
+
+    def ran(self, n: int) -> None:
+        """A group of ``n`` steps ended with its synchronization."""
+        if self.start is None:
+            self.start = time.perf_counter()
+        else:
+            self.steps += n
+
+    def _elapsed(self) -> float:
+        return time.perf_counter() - self.start - self.excluded
+
+    @contextlib.contextmanager
+    def left_out(self):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.excluded += time.perf_counter() - t
+
+    def steps_per_sec(self) -> float:
+        return self.steps / max(self._elapsed(), 1e-9)
+
+    def per_step(self) -> float | None:
+        """None after a single group."""
+        return self._elapsed() / self.steps if self.steps else None
+
+
 class Trainer:
     def __init__(self, work_dir: str, max_updates: int = 1000, val_check_interval: int = 2000,
                  num_sanity_val_steps: int = 5, num_ckpt_keep: int = 3, log_interval: int = 100,
                  eval_max_batches: int = -1, monitor_key: str = "total_loss",
                  monitor_mode: str = "min", save_best: bool = True, seed: int = 1234,
-                 device="cuda", valid_infer_interval: int | None = None):
+                 device="cuda", valid_infer_interval: int | None = None, steps_per_dispatch: int = 1):
         if monitor_mode not in ("min", "max"):
             raise ValueError(f"monitor_mode must be 'min' or 'max', got {monitor_mode!r}")
         self.work_dir = work_dir
@@ -123,6 +206,11 @@ class Trainer:
         self.metrics: dict = {}  # the last train step's losses (device scalars)
         self.val_metrics: dict = {}
         self.history: list[dict] = []  # one record per train step of this fit
+        self.steps_per_dispatch = max(int(steps_per_dispatch), 1)  # K: the most steps in a group
+        self.steady_per_step_s: float | None = None
+        self.graph_report: dict | None = None  # the last fit's CUDA graphs (train/graphs.py)
+        self.saves: list[dict] = []  # per save: step, hold_ms (the loop's), write_s (the thread's)
+        self._ckpt_writer = CheckpointWriter()
         self.test_seconds = 0.0  # the last test loop's wall time
         # figures and audio cost more than the scalar validation: their own interval
         self.valid_infer_interval = valid_infer_interval or val_check_interval
@@ -135,8 +223,12 @@ class Trainer:
         generator reads, by a large odd stride."""
         return torch.Generator(device=self.device).manual_seed(seed + mesh.rank() * 2_654_435_761)
 
+    def step_seed(self, step: int) -> int:
+        """The seed of train step ``step``'s generator on this rank."""
+        return self.seed * 1_000_003 + step + mesh.rank() * 2_654_435_761
+
     def step_generator(self, step: int) -> torch.Generator:
-        return self._generator(self.seed * 1_000_003 + step)
+        return torch.Generator(device=self.device).manual_seed(self.step_seed(step))
 
     def writer(self):
         """Rank 0's ``tensorboardX`` writer on ``<work_dir>/tb``; None on the
@@ -159,8 +251,13 @@ class Trainer:
             for k, v in metrics.items():
                 writer.add_scalar(f"{prefix}/{k}", float(v), self.global_step)
 
+    def join_pending_save(self) -> None:
+        """Wait for the background checkpoint write, if one is pending."""
+        self._ckpt_writer.join()
+
     def _restore(self, task) -> None:
         """Build the task's state; load the newest checkpoint, if any."""
+        self.join_pending_save()
         task.build_state(self.seed)
         last = get_last_checkpoint(self.work_dir)
         if last:
@@ -188,45 +285,108 @@ class Trainer:
         self._restore(task)
         mesh.broadcast_state(task.state_dict())
         task.attach_device_frame_cache()
+        k = self.steps_per_dispatch
+        runner = None
+        if self.device.type == "cuda" and k > 1 and getattr(task, "capture_safe", False):
+            mesh.check_graph_capture(f"steps_per_dispatch={k}")
+            from dicttts_tpu_torch.train.graphs import StepGraphs
+            runner = StepGraphs(task, self.device)
         if self.num_sanity_val_steps > 0 and self.global_step == 0:
             self.evaluate(task, val(), max_batches=self.num_sanity_val_steps, sanity=True)
         saved_at = self.global_step
-        while self.global_step < self.max_updates:
-            n_batches = 0
-            with contextlib.closing(prefetch_iterator(train(), depth=8)) as batches:
-                while self.global_step < self.max_updates:
-                    t0 = time.perf_counter()
-                    batch = next(batches, None)
-                    if batch is None:
-                        break
-                    t1 = time.perf_counter()
-                    n_batches += 1
-                    self.metrics = task.train_step(task.to_device(_shard(batch)),
-                                                   self.step_generator(self.global_step))
-                    self.global_step += 1
-                    self.history.append({
-                        "step": self.global_step, "sentences": batch_rows(batch),
-                        "frames": batch_frames(batch), "wait_ms": (t1 - t0) * 1e3,
-                        "step_ms": (time.perf_counter() - t1) * 1e3})
-                    if self.global_step % self.log_interval == 0:
-                        recent = self.history[-self.log_interval:]
-                        sps = 1e3 * len(recent) / sum(h["wait_ms"] + h["step_ms"] for h in recent)
-                        self.log_metrics({**self.metrics, "steps_per_sec": sps}, "tr")
-                        log.info("step %d | %s | %.2f it/s", self.global_step,
-                                 " ".join(f"{k}={float(v):.4f}" for k, v in self.metrics.items()), sps)
-                    if self.global_step % self.val_check_interval == 0:
-                        self.save(task, self.evaluate(task, val()))
-                        saved_at = self.global_step
-                        if self.global_step % self.valid_infer_interval == 0:
-                            self.log_artifacts(task, val())
-            if n_batches == 0:
-                raise ValueError(f"train_batches yielded nothing at step {self.global_step}")
-        if saved_at != self.global_step:
-            self.save(task, self.evaluate(task, val()))
+        clock = _SteadyClock()
+        group: list = []  # (prepared batch, seconds waited for it)
+        n_groups = 0
+        try:
+            while self.global_step < self.max_updates:
+                n_batches = 0
+                with contextlib.closing(prefetch_iterator(map(self._prepare, train()), depth=8)) as batches:
+                    while self.global_step < self.max_updates:
+                        t0 = time.perf_counter()
+                        item = next(batches, None)
+                        if item is None:
+                            break
+                        n_batches += 1
+                        group.append((item, time.perf_counter() - t0))
+                        ends = self._group_ends(group, k)
+                        while ends:
+                            same_shape = group[-1][0][3] == group[0][0][3]
+                            requeue = [] if same_shape else [group.pop()]  # the odd batch starts the next group
+                            n_ran = len(group)
+                            self._run_group(task, group, runner, n_groups)
+                            group, n_groups = requeue, n_groups + 1
+                            clock.ran(n_ran)
+                            if self.global_step % self.log_interval < n_ran:
+                                sps = clock.steps_per_sec()
+                                self.log_metrics({**self.metrics, "steps_per_sec": sps}, "tr")
+                                log.info("step %d | %s | %.2f it/s", self.global_step, " ".join(
+                                    f"{k_}={float(v):.4f}" for k_, v in self.metrics.items()), sps)
+                            if self.global_step % self.val_check_interval < n_ran:
+                                with clock.left_out():
+                                    self.save(task, self.evaluate(task, val()))
+                                    saved_at = self.global_step
+                                    if self.global_step % self.valid_infer_interval < n_ran:
+                                        self.log_artifacts(task, val())
+                            # a re-queued batch that reaches max_updates runs at once, never past it
+                            ends = bool(group) and self.global_step + len(group) >= self.max_updates
+                if n_batches == 0:
+                    raise ValueError(f"train_batches yielded nothing at step {self.global_step}")
+            self.steady_per_step_s = clock.per_step()
+            if runner is not None:
+                self.metrics = {k_: v.clone() for k_, v in self.metrics.items()}  # out of the graphs' pool
+                self.graph_report = runner.report()
+                runner.release()
+                runner = None
+            if saved_at != self.global_step:
+                self.save(task, self.evaluate(task, val()))
+        finally:
+            if runner is not None:
+                runner.release()
+            self.join_pending_save()
         if self._writer:
             self._writer.close()
         self._writer = None
         mesh.barrier()  # every rank leaves after rank 0's last checkpoint
+
+    def _group_ends(self, group: list, k: int) -> bool:
+        """The JAX trainer's rule: a group ends when it holds K batches, its
+        last batch's shape differs from its first's, or it reaches a
+        validation mark or max_updates."""
+        ahead = self.global_step + len(group)
+        return (len(group) >= k or group[-1][0][3] != group[0][0][3]
+                or ahead % self.val_check_interval == 0 or ahead >= self.max_updates)
+
+    def _prepare(self, batch: dict) -> tuple:
+        """The prefetch thread's work on a host batch: this rank's rows
+        (``_shard``), in pinned memory on the card's host; with its
+        sentences, frames and shapes (the grouping key)."""
+        host = _host(batch)
+        shapes = tuple((k, np.shape(v)) for k, v in host.items())
+        prepared = _shard(batch)
+        if self.device.type == "cuda":
+            prepared = {k: _pinned(v) for k, v in prepared.items()}
+        return prepared, batch_rows(batch), batch_frames(batch), shapes
+
+    def _run_group(self, task, group: list, runner, index: int) -> None:
+        """Run a group's steps, eagerly or by graph replay, with no host
+        read; then one synchronization, and one history record a step."""
+        t0 = time.perf_counter()
+        records = []
+        for (batch, rows, frames, _), wait in group:
+            if runner is None:
+                self.metrics = task.train_step(task.to_device(batch), self.step_generator(self.global_step))
+            else:
+                self.metrics = runner.step(batch, self.step_seed(self.global_step))
+            self.global_step += 1
+            records.append({"step": self.global_step, "sentences": rows, "frames": frames,
+                            "wait_ms": wait * 1e3, "group": index, "group_size": len(group),
+                            "run": runner.last if runner is not None else "eager"})
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        step_ms = (time.perf_counter() - t0) * 1e3 / len(group)
+        for r in records:
+            r["step_ms"] = step_ms
+        self.history.extend(records)
 
     def evaluate(self, task, val_batches: Iterable[dict], max_batches: int | None = None,
                  sanity: bool = False) -> dict:
@@ -279,7 +439,8 @@ class Trainer:
     def save(self, task, val_metrics: dict) -> str:
         """Save a checkpoint at the current step (rank 0; the path, or ""
         on other ranks); with ``save_best``, also the best one when
-        ``val_metrics`` improve on the monitored value."""
+        ``val_metrics`` improve on the monitored value. The file is written
+        on a thread: ``join_pending_save`` waits for it."""
         monitored = val_metrics.get(self.monitor_key, val_metrics.get("total_loss", math.nan))
         better = (monitored < self.best_val if self.monitor_mode == "min"
                   else monitored > self.best_val)
@@ -287,9 +448,14 @@ class Trainer:
             self.best_val = monitored
         if not mesh.is_chief():
             return ""
-        return save_checkpoint(self.work_dir, self.global_step, task.state_dict(),
-                               keep=self.num_ckpt_keep, is_best=self.save_best and better,
-                               extra={"best_val": float(self.best_val)})
+        t0 = time.perf_counter()
+        state = snapshot(task.state_dict())
+        record = self._ckpt_writer.start(self.work_dir, self.global_step, state, keep=self.num_ckpt_keep,
+                                         is_best=self.save_best and better,
+                                         extra={"best_val": float(self.best_val)})
+        record["hold_ms"] = (time.perf_counter() - t0) * 1e3
+        self.saves.append(record)
+        return record["path"]
 
     @torch.no_grad()
     def test(self, task) -> list:

@@ -110,7 +110,7 @@ def _adam_atol(opt, p, top: float) -> np.ndarray:
     moves the last Adam step of lr: lr * tol_g / (sqrt(v_hat) + eps), at
     most 2 lr (a step is at most lr either way)."""
     st, group = opt.state[p], opt.param_groups[0]
-    lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+    lr, eps, b2 = float(group["lr"]), group["eps"], group["betas"][1]  # the lr is a device scalar
     g = (st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt().numpy()
     return 1e-6 + np.minimum(lr * (1e-3 * g + 1e-6 * top) / (g + eps), 2 * lr)
 

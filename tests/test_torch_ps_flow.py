@@ -52,7 +52,7 @@ def _counts(opt_state):
 
 def _adam_atol(opt, p, top):
     st, group = opt.state[p], opt.param_groups[0]
-    lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+    lr, eps, b2 = float(group["lr"]), group["eps"], group["betas"][1]  # the lr is a device scalar
     g = (st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt().numpy()
     return 1e-6 + np.minimum(lr * (1e-3 * g + 1e-6 * top) / (g + eps), 2 * lr)
 
@@ -139,10 +139,15 @@ def test_a_non_finite_stage_two_loss_skips_the_update():
     params = {n: p.detach().clone() for n, p in task.model.named_parameters()}
     opt = task.opt_pf.state_dict()
     m = task.train_step(task.to_device(bad), None, eps=torch.tensor(NOISE[2]))
-    assert not np.isfinite(float(m["total_loss"])) and "grad_norm_pf" not in m
+    # the skip is decided on the card: the step reports the norm it did not apply
+    assert not np.isfinite(float(m["total_loss"])) and not np.isfinite(float(m["grad_norm_pf"]))
     assert task.updates_pf == 0 and task.step == START + 1
     assert all(torch.equal(params[n], p) for n, p in task.model.named_parameters())
-    assert task.opt_pf.state_dict() == opt
+    # the Glow's optimizer state, allocated at its first update even when the card skips it, is untouched
+    after = task.opt_pf.state_dict()
+    assert opt["state"] == {} and after["param_groups"] == opt["param_groups"]
+    assert all(float(st["step"]) == 0 and not st["exp_avg"].any() and not st["exp_avg_sq"].any()
+               for st in after["state"].values())
 
 
 def test_joint_mode_trains_main_and_post_flow_under_one_optimizer(monkeypatch):

@@ -21,6 +21,11 @@ alone writes checkpoints and the test outputs; the resume continues from
 the saved step; and the two ranks' ``meta.csv`` equals the one a single
 process writes from the same checkpoint. The process groups are gone after
 each run.
+
+At the config's ``steps_per_dispatch`` (16) the two ranks form the same
+groups of those batches, the odd shape re-queued and the validation marks
+ending groups, and end bit for bit where the same two ranks end at one
+step a group: the last checkpoint and the validation means.
 """
 
 import csv
@@ -39,6 +44,7 @@ from test_torch_run import RECIPE, SMALL, corpus  # noqa: E402,F401  (corpus: th
 from dicttts_tpu_torch import run  # noqa: E402
 from dicttts_tpu_torch.parallel import mesh  # noqa: E402
 from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask  # noqa: E402
+from dicttts_tpu_torch.config import load_config  # noqa: E402
 from dicttts_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from dicttts_tpu_torch.utils.indexed_dataset import IndexedDataset, IndexedDatasetBuilder  # noqa: E402
 
@@ -113,8 +119,11 @@ def test_two_ranks_train_resume_and_infer(odd_corpus, tmp_path, monkeypatch):
     work, one_work = tmp_path / "work", tmp_path / "one"
     work.mkdir()
     one_work.mkdir()
+    # one step a group: the checkpoints below are the validation marks' own (with the config's groups
+    # of 16, a re-queued batch at a mark joins the next one and validates a step late, as in JAX)
     hp = (f"binary_data_dir={odd_corpus},max_updates=4,val_check_interval=2,num_sanity_val_steps=1,"
-          f"valid_monitor_key=l1,{SMALL},max_sentences=4,dropout=0.0,predictor_dropout=0.0,disc_dropout=0.0")
+          f"valid_monitor_key=l1,{SMALL},max_sentences=4,dropout=0.0,predictor_dropout=0.0,disc_dropout=0.0,"
+          "steps_per_dispatch=1")
     hparams = [hp, "max_updates=5"]
     ports = [W.free_port() for _ in range(3)]
     ranks = W.spawn(tmp_path / "out", W.run_main_ranks, str(work), ports, RECIPE, [*hparams, None],
@@ -157,3 +166,31 @@ def test_two_ranks_train_resume_and_infer(odd_corpus, tmp_path, monkeypatch):
     trainer, _ = run.main(["--config", RECIPE, "--exp_name", "toy", "--device", "cpu", "--infer"])
     assert trainer.global_step == 5 and not mesh.initialized()
     assert _meta(work) == two_ranks
+
+
+def test_two_ranks_group_at_the_configs_steps_per_dispatch(odd_corpus, tmp_path):
+    """The config's K against K = 1, two gloo ranks each, the trainer's own
+    draws (a function of the step, whatever the groups): the same batches
+    in groups, the same last step, state and validation means, bit for
+    bit. The first batch's shape is the odd one: it runs alone, and the
+    mark at step 2 validates and checkpoints at the end of the group that
+    holds it, step 3, as the JAX trainer does."""
+    assert load_config(RECIPE)["steps_per_dispatch"] == 16
+    work = tmp_path / "work"
+    work.mkdir()
+    hp = (f"binary_data_dir={odd_corpus},max_updates=4,val_check_interval=2,num_sanity_val_steps=0,"
+          f"valid_monitor_key=l1,{SMALL},max_sentences=4,dropout=0.0,predictor_dropout=0.0,disc_dropout=0.0")
+    ports = [W.free_port() for _ in range(2)]
+    ranks = W.spawn(tmp_path / "out", W.run_main_ranks, str(work), ports, RECIPE, [hp, hp + ",steps_per_dispatch=1"],
+                    ["grouped", "single"], False, group=False)
+    (grouped0, single0), (grouped1, single1) = ranks[0]["runs"], ranks[1]["runs"]
+    for a, b in ((grouped0, grouped1), (single0, single1)):
+        assert a["step"] == b["step"] == 4 and a["history"] == b["history"] == [4, 4, 4, 3]
+        assert a["groups"] == b["groups"] and a["checksum"] == b["checksum"] and a["val"] == b["val"]
+    assert [size for _, size in single0["groups"]] == [1, 1, 1, 1]
+    assert grouped0["groups"] == [(0, 1), (1, 2), (1, 2), (2, 1)]
+    assert grouped0["val"] == single0["val"] and grouped0["checksum"] == single0["checksum"]
+    assert grouped0["written"] == [3, 4] and single0["written"] == [2, 4] and grouped1["written"] == []
+    last = [ckpt.load_checkpoint(ckpt.checkpoint_path(str(work / "checkpoints" / name), 4))[1]
+            for name in ("grouped", "single")]
+    assert ckpt.bit_differences(*last) == []

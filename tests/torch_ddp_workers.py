@@ -94,33 +94,36 @@ def pinned_draws(task_cls) -> dict:
     return {"train_step": train_step, "val_step": val_step, "_forward": _forward}
 
 
-def run_main_ranks(rank: int, work: str, ports: list, recipe: str, hparams: list) -> dict:
-    """``run.main`` on the CPU as one rank of two, with ``pinned_draws``: a
+def run_main_ranks(rank: int, work: str, ports: list, recipe: str, hparams: list,
+                   exp_names: list | None = None, pinned: bool = True) -> dict:
+    """``run.main`` on the CPU as one rank of two, with ``pinned_draws``
+    (``pinned``; else the trainer's draws, a function of the step): a
     torchrun-style join (MASTER_ADDR/PORT, WORLD_SIZE, RANK, LOCAL_RANK)
-    for each command line of ``hparams`` but the last, which runs
-    ``--infer`` through ``--multihost``'s DICTTTS_* variables. Returns,
-    per run, the trainer's step, history, validation means, weights'
-    checksum, the checkpoints this rank wrote and the test batches it
-    ended with."""
+    for each command line of ``hparams``, but where it is None ``--infer``
+    through ``--multihost``'s DICTTTS_* variables; each under its name in
+    ``exp_names`` (default "toy"). Returns, per run, the trainer's step,
+    history and groups, validation means, weights' checksum, the
+    checkpoints this rank wrote and the test batches it ended with."""
     from dicttts_tpu_torch import run
-    from dicttts_tpu_torch.train import trainer as trainer_mod
     from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask as Task
+    from dicttts_tpu_torch.utils import checkpoint as ckpt_mod  # the trainer's writer thread calls it
 
-    for name, fn in pinned_draws(Task).items():
+    for name, fn in (pinned_draws(Task) if pinned else {}).items():
         setattr(Task, name, fn)
     os.chdir(work)
     written, ended = [], []
-    save, test_end = trainer_mod.save_checkpoint, Task.test_end
-    trainer_mod.save_checkpoint = lambda *a, **k: written.append(a[1]) or save(*a, **k)
+    save, test_end = ckpt_mod.save_checkpoint, Task.test_end
+    ckpt_mod.save_checkpoint = lambda *a, **k: written.append(a[1]) or save(*a, **k)
     Task.test_end = lambda self, outputs: ended.append(len(outputs)) or test_end(self, outputs)
-    base = ["--config", recipe, "--exp_name", "toy", "--device", "cpu", "--dist_timeout", str(TIMEOUT_S)]
     runs = []
     for i, hp in enumerate(hparams):
-        last = i == len(hparams) - 1
+        base = ["--config", recipe, "--exp_name", exp_names[i] if exp_names else "toy", "--device", "cpu",
+                "--dist_timeout", str(TIMEOUT_S)]
+        infer = hp is None
         for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK", "LOCAL_RANK", "DICTTTS_COORDINATOR",
                   "DICTTTS_NUM_PROCESSES", "DICTTTS_PROCESS_ID"):
             os.environ.pop(k, None)
-        if last:
+        if infer:
             os.environ.update(DICTTTS_COORDINATOR=f"127.0.0.1:{ports[i]}", DICTTTS_NUM_PROCESSES="2",
                               DICTTTS_PROCESS_ID=str(rank))
             argv = [*base, "--multihost", "--infer"]
@@ -133,6 +136,7 @@ def run_main_ranks(rank: int, work: str, ports: list, recipe: str, hparams: list
         trainer, task = run.main(argv)
         runs.append({"step": trainer.global_step, "task_step": getattr(task, "step", None),
                      "history": [h["sentences"] for h in trainer.history],
+                     "groups": [(h["group"], h["group_size"]) for h in trainer.history],
                      "val": dict(trainer.val_metrics), "best_val": trainer.best_val,
                      "checksum": (float(sum(p.double().sum() for p in task.model.state_dict().values()))
                                   if hasattr(task, "model") else None),
@@ -170,7 +174,7 @@ def adam_atol(opt, p, top: float) -> np.ndarray:
     sqrt(v_hat)) moves the last Adam step of lr, at most 2 lr
     (tests/test_torch_accumulate.py)."""
     st, group = opt.state[p], opt.param_groups[0]
-    lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+    lr, eps, b2 = float(group["lr"]), group["eps"], group["betas"][1]  # the lr is a device scalar
     g = (st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt().numpy()
     return 1e-6 + np.minimum(lr * (1e-3 * g + 1e-6 * top) / (g + eps), 2 * lr)
 
