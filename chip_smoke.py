@@ -315,6 +315,18 @@ PER_UPDATES, PER_PROBE_N = 200, 30
 GRAPH_K = 16
 GRAPH_RUNS = {"f32": (20, 10, 1), "amp": (36, 4, 3)}
 NAN_STEPS, NAN_AT, NAN_K, NAN_SHAPE = 8, (5, 7), 4, (16, 32, 256)
+# phase 17: every other task's step (and Dict-TTS under accumulation) at the recipes' widths, K =
+# GROUP_K against K = 1 on fixed-shape synthetic batches: PortaSpeech's (B, T_ph, Tw, T) below 49
+# sentences, FastSpeech2's (B, T_txt, T), HiFi-GAN's crops (B, samples). A gate (the discriminators'
+# start in 17a and 17d, the Glow's in 17b) switches at GROUP_SWITCH (0-based), so each gate's graph
+# has a group of replays only, whose ms are its replay ms. The NaN step of 17a and of 17e; the
+# replays every graph must reach (the one that completes its capture and two more)
+GROUP_K, GROUP_REPLAYS, GROUP_STEPS, GROUP_SWITCH = 4, 3, 16, 8
+PS_GROUP_SHAPE, PS_NAN_AT = (32, 96, 40, 512), 14
+FS2_GROUP_SHAPE, FS2_GROUP_STEPS = (32, 96, 512), 12
+FS2_REGISTRY_SHAPE, FS2_REGISTRY_STEPS = (8, 48, 128), 6  # the other entries: a short, small check
+VOC_GROUP_SHAPE = (24, 8192)
+ACC_GROUP_STEPS, ACC_NAN_AT = 12, 10
 # a frame whose normalized ACF spans less than this over the lag band has no
 # peak (seeded tones: voiced frames span 1.2 at their 1st percentile, frames
 # at a silence's edge 1e-6 to 2e-3)
@@ -1669,18 +1681,21 @@ def accumulation(root, binary, smi):
     trainer, task, first = run_main(root, "accumulate", hp)
     work_dir = os.path.join(root, "checkpoints", "accumulate")
     _, saved = load_checkpoint(os.path.join(work_dir, "model_ckpt_steps_3.ckpt"), "cpu")
-    counts = (task.step, task.updates_g, task.updates_d, task.acc["g"]["n"], task.acc["d"]["n"])
+    counts = (task.step, task.updates_g, task.updates_d, int(task.acc["g"].n), int(task.acc["d"].n))
+    pending = (int(saved["acc_g"]["n"]), int(saved["acc_d"]["n"]))
     say(f"accumulate 2: 3 micro-steps, (step, updates g, updates d, pending g, pending d) {counts}; the "
-        f"step-3 checkpoint holds {saved['acc_g']['n']} and {saved['acc_d']['n']} pending micro-steps")
-    if counts != (3, 1, 1, 1, 1) or (saved["acc_g"]["n"], saved["acc_d"]["n"]) != (1, 1):
+        f"step-3 checkpoint holds {pending[0]} and {pending[1]} pending micro-steps; graphs "
+        f"{graph_summary(trainer)}")
+    if counts != (3, 1, 1, 1, 1) or pending != (1, 1):
         raise AssertionError(f"accumulation counts {counts} after 3 micro-steps")
     del trainer, task
     trainer, task, second = run_main(root, "accumulate", "max_updates=8")
-    counts = (task.step, task.updates_g, task.updates_d, task.acc["g"]["n"], task.acc["d"]["n"])
+    counts = (task.step, task.updates_g, task.updates_d, int(task.acc["g"].n), int(task.acc["d"].n))
     vals, finite = finite_run(trainer, task)
     say(f"resumed at micro-step 3 and ran to {trainer.global_step}: (step, updates g, updates d, pending "
         f"g, pending d) {counts}; launches (K1, K2, K3) {first} + {second}; last step {vals}; finite "
-        f"{finite}; step ms {[round(h['step_ms'], 1) for h in trainer.history]}; on {smi}")
+        f"{finite}; step ms {[round(h['step_ms'], 1) for h in trainer.history]}; runs "
+        f"{[h['run'] for h in trainer.history]}; graphs {graph_summary(trainer)}; on {smi}")
     if not (counts == (8, 4, 4, 0, 0) and finite and "grad_norm_g" in vals and "grad_norm_d" in vals
             and [h["step"] for h in trainer.history] == list(range(4, 9))):
         raise AssertionError(f"8 micro-steps did not give 4 updates of each optimizer: {counts}")
@@ -2063,7 +2078,7 @@ def vocoder_training(root, binary, smi):
     init = HifiGanTask(cfg, device="cuda")
     init.build_state(trainer.seed)
     same = all(torch.equal(a, b) for a, b in zip(init.disc.state_dict().values(), task.disc.state_dict().values()))
-    if not (same and task.opt_d.state_dict()["state"] == {} and task.updates_d == 0 and task.updates_g == 2
+    if not (same and untouched(task.opt_d) and task.updates_d == 0 and task.updates_g == 2
             and finite(trainer)):
         raise AssertionError("the discriminator or its optimizer moved before disc_start_steps")
     d2 = {k: v.clone() for k, v in task.disc.state_dict().items()}
@@ -3097,38 +3112,43 @@ def to_cpu(tree):
 
 @contextlib.contextmanager
 def hooked_steps(on_step):
-    """Call ``on_step(metrics, launches)`` after every train step of an
-    adversarial task, whether it ran eagerly or as a graph replay, with the
-    (K1, K2, K3) launches it added; a graph's capture, which runs no step,
-    is none."""
+    """Call ``on_step(metrics, launches)`` after every train step of any
+    task, whether it ran eagerly or as a graph replay, with the (K1, K2,
+    K3) launches it added; a graph's capture, which runs no step, is none,
+    and a task's step that calls its parent's counts once."""
     from dicttts_tpu_torch.train.graphs import StepGraphs
     from dicttts_tpu_torch.train.tasks.adv_base import AdversarialTTSTask
+    from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
+    from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
+    from dicttts_tpu_torch.train.tasks.ps_flow import PortaSpeechFlowTask
 
     inside = [0]
-    eager, replayed = AdversarialTTSTask.train_step, StepGraphs.step
+    owners = (AdversarialTTSTask, PortaSpeechFlowTask, FastSpeech2Task, HifiGanTask, StepGraphs)
+    names = ("train_step",) * 4 + ("step",)
+    originals = [vars(cls)[n] for cls, n in zip(owners, names)]
 
-    def eager_step(self, *a, **kw):
-        before = launch_counts()
-        m = eager(self, *a, **kw)
-        if not inside[0]:
-            on_step(m, tuple(x - y for x, y in zip(launch_counts(), before)))
-        return m
+    def hooked(fn):
+        def run(self, *a, **kw):
+            outer = not inside[0]
+            before = launch_counts()
+            inside[0] += 1
+            try:
+                m = fn(self, *a, **kw)
+            finally:
+                inside[0] -= 1
+            if outer:
+                on_step(m, tuple(x - y for x, y in zip(launch_counts(), before)))
+            return m
 
-    def graph_step(self, *a, **kw):
-        before = launch_counts()
-        inside[0] += 1
-        try:
-            m = replayed(self, *a, **kw)
-        finally:
-            inside[0] -= 1
-        on_step(m, tuple(x - y for x, y in zip(launch_counts(), before)))
-        return m
+        return run
 
-    AdversarialTTSTask.train_step, StepGraphs.step = eager_step, graph_step
+    for cls, n, fn in zip(owners, names, originals):
+        setattr(cls, n, hooked(fn))
     try:
         yield
     finally:
-        AdversarialTTSTask.train_step, StepGraphs.step = eager, replayed
+        for cls, n, fn in zip(owners, names, originals):
+            setattr(cls, n, fn)
 
 
 @contextlib.contextmanager
@@ -3140,13 +3160,14 @@ def recorded_steps():
         yield out
 
 
-def graph_report_lines(label, trainer, steps, launches, val_batches, smi):
+def graph_report_lines(label, trainer, steps, launches, val_batches, smi, bank_kernels=True):
     """Print a run's graphs, capture seconds, replays, K1/K2 a step and
-    steady_per_step_s; returns them as a dict."""
+    steady_per_step_s; returns them as a dict. K1 and K2 must launch once
+    a train step (``bank_kernels``), or never."""
     rep = trainer.graph_report or {"graphs": [], "replays": 0, "capture_s": 0.0, "eager_steps": steps}
     for g in rep["graphs"]:
-        shapes = {k: v for k, v in g["key"][0].items() if k in ("mel2word", "word_tokens")}
-        say(f"{label} graph {shapes} gates (adv_on, disc_on) {tuple(g['key'][1])}: captured in "
+        shapes = {k: v for k, v in g["key"][0].items() if k in ("mel2word", "word_tokens", "mel2ph", "wavs")}
+        say(f"{label} graph {shapes} gates {g['key'][1]}: captured in "
             f"{g['capture_s'] * 1e3:.1f} ms ({g['free_gib']:.2f} GiB free on the card, {g['reserved_gib']:.2f} "
             f"reserved by the allocator before it), replayed {g['replays']} times, K1/K2 nodes {g['nodes']}")
     by_run = {}
@@ -3161,11 +3182,32 @@ def graph_report_lines(label, trainer, steps, launches, val_batches, smi):
         f"capture {rep['capture_s']:.2f} s; K1 {k1} ({val_batches} of them validation), K2 {k2}: "
         f"{per_step[0]:g} and {per_step[1]:g} a train step, replays included; steady_per_step_s "
         f"{trainer.steady_per_step_s}; on {smi}")
-    if per_step != (1.0, 1.0) or k3:
-        raise AssertionError(f"{label}: K1/K2 not once a step ({launches}, {val_batches} validation batches)")
+    if (per_step != (1.0, 1.0) if bank_kernels else launches != (0, 0, 0)) or k3:
+        raise AssertionError(f"{label}: K1/K2 not {'once a step' if bank_kernels else 'unlaunched'} "
+                             f"({launches}, {val_batches} validation batches)")
     return {"graphs": rep["graphs"], "replays": rep["replays"], "capture_s": rep["capture_s"],
             "eager_steps": rep["eager_steps"], "steady_per_step_s": trainer.steady_per_step_s,
             "step_ms_by_run": {f"{how} {shape}": ms for (how, shape), ms in sorted(by_run.items())}}
+
+
+def graph_summary(trainer) -> str:
+    """A run's graphs in one line: each key's gates and replays; or why the
+    task ran eagerly."""
+    rep = trainer.graph_report
+    if not rep:
+        return "none"
+    if rep.get("not_captured"):
+        return f"none (eager: {rep['not_captured']})"
+    if not rep["graphs"]:
+        return f"none ({rep['eager_steps']} eager warm-ups: no key came twice)"
+    return ", ".join(f"{g['key'][1]} x{g['replays']}" for g in rep["graphs"])
+
+
+def untouched(opt) -> bool:
+    """An optimizer whose state (allocated when its task built it) no update
+    has touched: every count 0, every moment zero."""
+    return all(float(st["step"]) == 0 and not st["exp_avg"].any() and not st["exp_avg_sq"].any()
+               for st in opt.state_dict()["state"].values())
 
 
 def first_difference(a: list, b: list):
@@ -3380,6 +3422,253 @@ def graph_nan_skip(smi):
             f"included); on {smi}")
         if step_diff or state_diff:
             raise AssertionError(f"{label} differs from K=1 around the NaN steps: {step_diff} {state_diff[:5]}")
+    return report, launches
+
+
+# -- phase 17: K-step groups as CUDA-graph replays of every other task's step -----------------------
+
+def recipe_cfg(config, **over) -> dict:
+    """A recipe's config (its YAML chain) with ``over`` set."""
+    from dicttts_tpu_torch.config import load_config
+
+    return {**load_config(os.path.join(REPO, config), save=False), **over}
+
+
+def grouped_pair(label, make_task, batches, smi, bank_kernels=False, profile=None):
+    """``make_task()`` through ``Trainer.fit`` on ``batches`` at K = 1 and
+    K = GROUP_K (and, with ``profile`` = (first, last), a third K = GROUP_K
+    run under torch.profiler over those calls of the graph runner),
+    deterministic kernels, no checkpoint: every step's losses and the final
+    state (weights, moments, counts, lrs, accumulators) equal bit for bit,
+    and every graph replayed GROUP_REPLAYS times. Prints each graph's key,
+    capture seconds and free memory, replay ms against eager ms, and peak
+    memory. Returns (report, launches by run, the K = 1 run's steps and
+    task)."""
+    from dicttts_tpu_torch.train.trainer import Trainer
+    from dicttts_tpu_torch.utils.checkpoint import bit_differences
+
+    runs, report, launches = {}, {}, {}
+    one_task = None
+    plan = [(1, False), (GROUP_K, False)] + ([(GROUP_K, True)] if profile else [])
+    with deterministic(), tempfile.TemporaryDirectory(prefix="chip_smoke_groups_") as work:
+        for k, profiled in plan:
+            run_label = f"{label} K={k}{' profiled' if profiled else ''}"
+            task = make_task()
+            trainer = Trainer(os.path.join(work, run_label.replace(" ", "_")), max_updates=len(batches),
+                              val_check_interval=10 ** 6, num_sanity_val_steps=0, device="cuda",
+                              steps_per_dispatch=k)
+            trainer.save = lambda *a, **kw: ""  # no checkpoint: phase 17 holds the state in memory
+            trace_cm = profiled_graph_steps(*profile, {}) if profiled else contextlib.nullcontext({})
+            with recorded_steps() as steps, trace_cm as trace:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_launch_counts()
+                t = time.time()
+                trainer.fit(task, batches)
+                torch.cuda.synchronize()
+                seconds = time.time() - t
+                steps = to_cpu(steps)
+            n = launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            say(f"{run_label}: {len(steps)} steps in {seconds:.1f} s (model build and captures included), "
+                f"peak memory {peak:.2f} GiB, launches (K1, K2, K3) {n}; on {smi}")
+            rep = graph_report_lines(run_label, trainer, len(batches), n, 0, smi, bank_kernels)
+            rep.update(peak_gib=peak, seconds=seconds)
+            if k == 1:
+                rep["eager_ms"] = [round(h["step_ms"], 2) for h in trainer.history[1:]]  # past the first
+            elif not profiled:
+                groups = {}
+                for h in trainer.history:
+                    groups.setdefault(h["group"], []).append(h)
+                # each group of replays only: its steps (1-based) and its ms a step
+                rep["replay_ms"] = {f"steps {g[0]['step']}-{g[-1]['step']}": round(g[0]["step_ms"], 2)
+                                    for g in groups.values() if all(h["run"] == "replayed" for h in g)}
+                low = min((g["replays"] for g in rep["graphs"]), default=0)
+                if not rep["graphs"] or low < GROUP_REPLAYS or rep["eager_steps"] != len(rep["graphs"]):
+                    raise AssertionError(f"{run_label}: not every graph replayed {GROUP_REPLAYS} times after "
+                                         f"its key's eager step: {graph_summary(trainer)}")
+            if profiled:
+                count = {name: sum(c for key, c in trace["kernels"].items() if f"{name}_kernel" in key)
+                         for name in ("s2pa_bank_fwd", "s2pa_bank_bwd")}
+                span = profile[1] - profile[0] + 1
+                say(f"{run_label}: torch.profiler over the graph runner's calls {profile[0]}-{profile[1]} "
+                    f"(run {trace['runs']}): the trace holds {count['s2pa_bank_fwd']} K1 and "
+                    f"{count['s2pa_bank_bwd']} K2 kernels, the wrappers' counts added (K1, K2, K3) "
+                    f"{trace['launches']}; {sum(trace['kernels'].values())} device kernels in all; on {smi}")
+                if (set(trace["runs"]) != {"replayed"} or trace["launches"] != (span, span, 0)
+                        or (count["s2pa_bank_fwd"], count["s2pa_bank_bwd"], 0) != trace["launches"]):
+                    raise AssertionError(f"{run_label}: the replayed group's K1/K2 kernels in the trace {count} "
+                                         f"disagree with the counts {trace['launches']}")
+                rep["profiled"] = {"runs": trace["runs"], "counted": list(trace["launches"]),
+                                   "trace_k1_k2": [count["s2pa_bank_fwd"], count["s2pa_bank_bwd"]]}
+            runs[run_label] = {"steps": steps, "state": to_cpu(task.state_dict())}
+            report[run_label] = rep
+            launches[f"groups {run_label}"] = n
+            if k == 1:
+                one_task = task
+            else:
+                del task
+            del trainer
+            torch.cuda.empty_cache()
+    one = runs[f"{label} K=1"]
+    for run_label, run in list(runs.items())[1:]:
+        step_diff = first_difference(one["steps"], run["steps"])
+        state_diff = bit_differences(one["state"], run["state"])
+        say(f"{run_label} against K=1 over {len(batches)} steps: first step whose losses differ {step_diff}, "
+            f"final-state tensors that differ {len(state_diff)} (weights, moments, counts, lrs, accumulators; "
+            f"bit for bit); on {smi}")
+        if step_diff or state_diff:
+            raise AssertionError(f"{run_label} differs from K=1: {step_diff} {state_diff[:5]}")
+    replay_ms = report[f"{label} K={GROUP_K}"]["replay_ms"]
+    say(f"{label}: groups of replays only, ms a step {replay_ms}, against K=1's eager steps 2-{len(batches)} "
+        f"{report[f'{label} K=1']['eager_ms']} ms; on {smi}")
+    report[label] = {"equal_to_the_bit": True, "replay_ms": replay_ms,
+                     "eager_ms": report[f"{label} K=1"]["eager_ms"]}
+    return report, launches, one["steps"], one_task
+
+
+def skipped_alike(label, steps, task, nan_at, updates_g):
+    """The NaN step's losses are not finite, and the generator's updates
+    are ``updates_g``: the non-finite steps counted for nothing."""
+    bad = [i for i, m in enumerate(steps) if not math.isfinite(float(m["total_loss"]))]
+    say(f"{label}: steps with a non-finite loss {bad} (a NaN in the mels of step {nan_at}), generator updates "
+        f"{task.updates_g} (want {updates_g}), discriminator updates {task.updates_d}")
+    if nan_at not in bad or task.updates_g != updates_g:
+        raise AssertionError(f"{label}: the NaN step was not skipped: {bad}, {task.updates_g} updates")
+    return {"non_finite_steps": bad, "updates_g": task.updates_g, "updates_d": task.updates_d}
+
+
+def task_maker(cls, cfg, **kw):
+    """A new task for each run (the trainer builds its state from its seed)."""
+    return lambda: cls(cfg, device="cuda", **kw)
+
+
+def group_ps_batches():
+    """GROUP_STEPS word batches of PS_GROUP_SHAPE, and the same with a NaN
+    in the mels of step PS_NAN_AT."""
+    B, T_ph, Tw, T = PS_GROUP_SHAPE
+    rng = np.random.RandomState(SEED + 17)
+    ps = [ps_batch(rng, B, T_ph, Tw, T) for _ in range(GROUP_STEPS)]
+    ps_nan = list(ps)
+    ps_nan[PS_NAN_AT] = dict(ps[PS_NAN_AT], mels=ps[PS_NAN_AT]["mels"].copy())
+    ps_nan[PS_NAN_AT]["mels"][1, 7, 11] = np.nan
+    return ps, ps_nan
+
+
+def group_ps_adv(smi):
+    """17a: ps_adv, the discriminator from GROUP_SWITCH, a NaN step."""
+    from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
+
+    _, ps_nan = group_ps_batches()
+    B, _, _, T = PS_GROUP_SHAPE
+    cfg = recipe_cfg(PS_ADV_CONFIG, disc_start_steps=GROUP_SWITCH)
+    say(f"phase 17a: ps_adv at the recipe's widths, {GROUP_STEPS} steps of {B}x{T}, the discriminator from "
+        f"step {GROUP_SWITCH}, a NaN in the mels of step {PS_NAN_AT}")
+    rep, n, steps, task = grouped_pair("17a ps_adv", task_maker(PortaSpeechAdvTask, cfg), ps_nan, smi)
+    finite = sum(math.isfinite(float(m["total_loss"])) for m in steps)
+    rep["17a ps_adv"]["nan"] = skipped_alike("17a ps_adv", steps, task, PS_NAN_AT, finite)
+    return rep, n
+
+
+def group_ps_flow(smi, acc):
+    """17b: the two-stage ps_flow with the post-glow across its switch."""
+    from dicttts_tpu_torch.train.tasks.ps_flow import PortaSpeechFlowTask
+
+    ps, _ = group_ps_batches()
+    B, _, _, T = PS_GROUP_SHAPE
+    cfg = recipe_cfg(PS_FLOW_CONFIG, use_post_glow=True, post_glow_training_start=GROUP_SWITCH,
+                     accumulate_grad_batches=acc)
+    label = f"17b ps_flow accumulate {acc}"
+    say(f"phase {label}: two-stage with the post-glow, {GROUP_STEPS} steps of {B}x{T} across the switch "
+        f"at step {GROUP_SWITCH}")
+    rep, n, steps, task = grouped_pair(label, task_maker(PortaSpeechFlowTask, cfg), ps, smi)
+    counts = (task.updates_g, task.updates_pf)
+    want = (GROUP_SWITCH // acc, (GROUP_STEPS - GROUP_SWITCH) // acc)
+    say(f"{label}: updates (main, post-flow) {counts}, want {want}; stages "
+        f"{[int(float(m['post_stage'])) for m in steps]}")
+    if counts != want:
+        raise AssertionError(f"{label}: updates {counts}, not {want}")
+    rep[label]["updates"] = list(counts)
+    return rep, n
+
+
+def group_fs2(smi, entries=((None, None),), shape=FS2_GROUP_SHAPE, n_steps=FS2_GROUP_STEPS):
+    """17c: fs2 at the recipe's widths, its own encoder and decoder (None)
+    or the (encoder, decoder) ``entries``."""
+    from dicttts_tpu_torch.train.tasks.fs2 import FastSpeech2Task
+
+    B, T_txt, T = shape
+    rng = np.random.RandomState(SEED + 17)
+    report, launches = {}, {}
+    for enc, dec in entries:
+        over = {k: v for k, v in (("encoder_type", enc), ("decoder_type", dec)) if v}
+        cfg = recipe_cfg(FS2_CONFIG, n_vocab=80, **over)
+        batches = [fs_batch(rng, B, T_txt, T, cfg["n_vocab"]) for _ in range(n_steps)]
+        label = f"17c fs2 {cfg['encoder_type']}+{cfg['decoder_type']}"
+        say(f"phase {label}: at the recipe's widths, {n_steps} steps of {B}x{T}")
+        rep, n, _, task = grouped_pair(label, task_maker(FastSpeech2Task, cfg), batches, smi)
+        report.update(rep)
+        launches.update(n)
+    return report, launches
+
+
+def group_hifigan(smi):
+    """17d: HiFi-GAN at the recipe's widths, the discriminators from
+    GROUP_SWITCH."""
+    from dicttts_tpu_torch.train.tasks.hifigan import HifiGanTask
+
+    B, S = VOC_GROUP_SHAPE
+    rng = np.random.RandomState(SEED + 17)
+    cfg = recipe_cfg(VOCODER_CONFIG, disc_start_steps=GROUP_SWITCH)
+    crops = [{"wavs": (0.3 * rng.randn(B, S)).astype(np.float32),
+              "mels": rng.uniform(-5, 0, (B, S // HOP, 80)).astype(np.float32)} for _ in range(GROUP_STEPS)]
+    say(f"phase 17d: HiFi-GAN at the recipe's widths (upsample_initial_channel "
+        f"{cfg['upsample_initial_channel']}), {GROUP_STEPS} steps of {B}x{S} crops, the discriminators "
+        f"from step {GROUP_SWITCH}")
+    rep, n, _, task = grouped_pair("17d hifigan", task_maker(HifiGanTask, cfg), crops, smi)
+    if (task.updates_g, task.updates_d) != (GROUP_STEPS, GROUP_STEPS - GROUP_SWITCH):
+        raise AssertionError(f"17d: updates {(task.updates_g, task.updates_d)}")
+    return rep, n
+
+
+def group_dict_tts_accumulate(smi):
+    """17e: Dict-TTS at full width under accumulate_grad_batches=2, a NaN
+    micro-step inside a group; one replayed group under torch.profiler."""
+    from dicttts_tpu_torch.train.tasks.dict_tts import DictTTSTask
+
+    B, Tw, T = NAN_SHAPE
+    bank = make_bank(torch.device("cuda"), torch.Generator(device="cuda").manual_seed(SEED + 17))
+    batches = make_train_batches(np.random.RandomState(SEED + 17), ACC_GROUP_STEPS, B, Tw, T, BANK_V)
+    batches[ACC_NAN_AT]["mels"][1, 7, 11] = np.nan
+    label = "17e dict_tts accumulate 2"
+    say(f"phase 17e: Dict-TTS at full width with accumulate_grad_batches=2, {ACC_GROUP_STEPS} micro-steps of "
+        f"{B}x{Tw}x{T}, a NaN in the mels of micro-step {ACC_NAN_AT}; the replayed group of calls "
+        f"{GROUP_K}-{2 * GROUP_K - 1} under torch.profiler")
+    rep, n, steps, task = grouped_pair(label, task_maker(DictTTSTask, {"accumulate_grad_batches": 2}, bank=bank),
+                                       batches, smi, bank_kernels=True, profile=(GROUP_K, 2 * GROUP_K - 1))
+    finite = sum(math.isfinite(float(m["total_loss"])) for m in steps)
+    rep[label]["nan"] = skipped_alike(label, steps, task, ACC_NAN_AT, finite // 2)
+    return rep, n
+
+
+def grouped_tasks(smi):
+    """Phase 17: 17a ps_adv, 17b the two-stage ps_flow (with and without
+    accumulation), 17c fs2 (the recipe, then the other registry entries on
+    a smaller batch), 17d HiFi-GAN, 17e Dict-TTS under accumulation, each
+    at the recipe's widths, K = GROUP_K against K = 1 (``grouped_pair``).
+    Returns (report, launches by run)."""
+    report, launches = {}, {}
+    parts = [("17a", lambda: group_ps_adv(smi)), ("17b", lambda: group_ps_flow(smi, 1)),
+             ("17b accumulate", lambda: group_ps_flow(smi, 2)), ("17c", lambda: group_fs2(smi)),
+             ("17c registry", lambda: group_fs2(smi, FS2_OTHER_ENTRIES, FS2_REGISTRY_SHAPE, FS2_REGISTRY_STEPS)),
+             ("17d", lambda: group_hifigan(smi)), ("17e", lambda: group_dict_tts_accumulate(smi))]
+    for name, part in parts:
+        t = time.time()
+        rep, n = part()
+        report.update(rep)
+        launches.update(n)
+        torch.cuda.empty_cache()
+        say(f"phase {name} done in {time.time() - t:.1f} s")
     return report, launches
 
 
@@ -3964,6 +4253,15 @@ def main() -> int:
     say("phase 15 report " + json.dumps({k: v for k, v in per_report.items() if k != "per"}))
     say(f"phase 15b-c launches (K1, K2, K3) by run {per_launches}")
     say(f"phase 15b-c done in {time.time() - t15:.1f} s, at {time.time() - T_START:.1f} s")
+
+    t17 = time.time()
+    say(f"phase 17: K={GROUP_K} against K=1 for ps_adv, ps_flow, fs2, HiFi-GAN and Dict-TTS under accumulation, "
+        "deterministic kernels, TF32 off")
+    group_report, group_launches = grouped_tasks(smi)
+    recipe_launches.update(group_launches)
+    say(f"phase 17 launches (K1, K2, K3) by run {group_launches}")
+    say("phase 17 report " + json.dumps(group_report))
+    say(f"phase 17 done in {time.time() - t17:.1f} s, at {time.time() - T_START:.1f} s")
 
     kernels = []
     for key, name_, src, line in (("k1", "s2pa_bank_fwd", "s2pa_bank_fwd.cu", 128),

@@ -71,8 +71,46 @@ class ActNorm(nn.Module):
         return (x - self.bias) * torch.exp(-self.logs) * x_mask, -self.logs.sum() * frames
 
 
+def logabsdet_and_inverse(w: torch.Tensor, inverse: bool) -> tuple:
+    """log|det w| of a small square ``w``, and its inverse if ``inverse``
+    (else None): LU with partial pivoting in LAPACK's order (multipliers
+    a[i, k] * (1 / a[k, k]) below the pivot, log|det| the sum of
+    log|U_kk|: on the CPU the bits of ``torch.linalg.slogdet``), then
+    back substitution, written in plain tensor ops. ``torch.linalg.slogdet``
+    and ``inv`` go to cuSOLVER or MAGMA on the card, which check their
+    ``info`` on the host, and a CUDA graph cannot capture that; these ops
+    capture, and autograd differentiates them."""
+    S = w.shape[0]
+    rows = torch.arange(S, device=w.device)
+    a = w
+    b = torch.eye(S, dtype=w.dtype, device=w.device) if inverse else None  # P, then L^-1 P
+    pivots = []
+    for k in range(S):
+        piv = torch.argmax(torch.where(rows >= k, a[:, k].abs(), -1.0))
+        perm = torch.where(rows == k, piv, torch.where(rows == piv, k, rows))
+        a = a[perm]
+        pivots.append(a[k, k])
+        below = (rows > k)[:, None]
+        mult = a[:, k:k + 1] * (1.0 / a[k, k])
+        a = torch.where(below, a - mult * a[k:k + 1], a)
+        if inverse:
+            b = b[perm]
+            b = torch.where(below, b - mult * b[k:k + 1], b)
+    logabs = torch.log(torch.stack(pivots).abs()).sum()
+    if not inverse:
+        return logabs, None
+    out = [None] * S
+    for k in reversed(range(S)):
+        row = b[k]
+        for j in range(k + 1, S):
+            row = row - a[k, j] * out[j]
+        out[k] = row / a[k, k]
+    return logabs, torch.stack(out)
+
+
 class InvConvNear(nn.Module):
-    """Invertible 1x1 convolution over channel groups of ``n_split``."""
+    """Invertible 1x1 convolution over channel groups of ``n_split``. Its
+    log-determinant and inverse come from ``logabsdet_and_inverse``."""
 
     def __init__(self, channels: int, n_split: int = 4):
         super().__init__()
@@ -83,11 +121,11 @@ class InvConvNear(nn.Module):
         B, T, C = x.shape
         S = self.n_split
         frames = x_mask.sum(dim=(1, 2))
-        logabsdet = torch.linalg.slogdet(self.weight)[1]
+        logabsdet, inv = logabsdet_and_inverse(self.weight, reverse)
         if not reverse:
             mat, logdet = self.weight, (C // S) * logabsdet * frames
         else:
-            mat, logdet = torch.linalg.inv(self.weight), -(C // S) * logabsdet * frames
+            mat, logdet = inv, -(C // S) * logabsdet * frames
         # group g of S channels: S/2 from the first coupling half, S/2 from the second
         y = x.reshape(B, T, 2, C // S, S // 2).transpose(2, 3).reshape(B, T, C // S, S)
         y = torch.matmul(y, mat.t())

@@ -38,7 +38,7 @@ def _hold_at_zero(param: nn.Parameter, rows: slice) -> None:
 
     def hook(g: torch.Tensor) -> torch.Tensor:
         g = g.clone()
-        g[rows] = 0.0
+        g[rows].zero_()
         return g
 
     param.register_hook(hook)

@@ -6,7 +6,9 @@ the host with librosa (data_gen/tts/data_gen_utils.py:93-147): a centered
 STFT with a periodic Hann window and ``pad_mode="constant"``, magnitude,
 a Slaney-scaled mel filterbank, then log10(max(eps, mel)). The filterbank
 is computed in numpy once; the FFT and the matmul run batched on the
-tensor's device. ``gan_log_mel`` is HiFi-GAN's training mel (upstream
+tensor's device; the window and the filterbank are copied to a device once
+and kept (``_on_device``), so a step that uses them copies nothing from
+the host and a CUDA graph can capture it. ``gan_log_mel`` is HiFi-GAN's training mel (upstream
 modules/hifigan/mel_utils.py:45-80): reflect-padded, non-centered frames,
 natural-log compression. No Pallas kernel is involved in the JAX package's
 version either.
@@ -79,6 +81,18 @@ def mel_filterbank(
     return weights.astype(np.float32)
 
 
+_DEVICE_CONSTANTS: dict = {}
+
+
+def _on_device(array: np.ndarray, key: tuple, device: torch.device) -> torch.Tensor:
+    """``array`` (a constant named by ``key``) as a tensor on ``device``,
+    copied there once."""
+    k = (key, str(device))
+    if k not in _DEVICE_CONSTANTS:
+        _DEVICE_CONSTANTS[k] = torch.as_tensor(array, device=device)
+    return _DEVICE_CONSTANTS[k]
+
+
 def frame_signal(wav: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
     """Slice an already-padded [..., T] signal into [..., frames, n_fft]."""
     return wav.unfold(-1, n_fft, hop)
@@ -103,7 +117,7 @@ def stft_magnitude(
     pad_mode: str = "constant",
 ) -> torch.Tensor:
     """|STFT| of [..., T] -> [..., frames, n_fft//2+1]."""
-    window = torch.as_tensor(hann_window(win_length, periodic=True), device=wav.device)
+    window = _on_device(hann_window(win_length, periodic=True), ("hann", win_length), wav.device)
     if win_length < n_fft:
         pad = (n_fft - win_length) // 2
         window = F.pad(window, (pad, n_fft - win_length - pad))
@@ -114,7 +128,8 @@ def stft_magnitude(
 
 
 def _mel_basis(wav, sample_rate, n_fft, n_mels, fmin, fmax) -> torch.Tensor:
-    return torch.as_tensor(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax), device=wav.device)
+    return _on_device(mel_filterbank(sample_rate, n_fft, n_mels, fmin, fmax),
+                      ("mel", sample_rate, n_fft, n_mels, fmin, fmax), wav.device)
 
 
 def log10_mel(

@@ -8,13 +8,21 @@ same-shape steps, compiled once per shape). Here a step is captured into a
 it: the host launches one graph a step instead of some thousands of
 kernels, and reads nothing from the card until the group ends.
 
+Every task of ``train/tasks`` declares its step capture-safe
+(``capture_safe``; a task that cannot be captured says why in
+``capture_reason``, and the trainer runs it eagerly and reports that).
 A key is the batch's entries with their shapes and dtypes and the task's
-``step_key()`` (for the adversarial tasks the step's gates, known on the
-host ahead of the step). A key's first step runs eagerly: it is a real
-step and the warm-up that allocates every state the captured step reads
-(the optimizers' moments, cuDNN's and cuBLAS's handles, the loss's blur
-matrices). Its second step is captured and then replayed, and so is every
-later one. The warm-up and the capture run on one side stream; replays
+``step_key()``: the step's gates, known on the host ahead of the step and
+named by ``step_key_names`` (the adversarial tasks' adv_on and disc_on,
+the two-stage PortaSpeech's post_on, HiFi-GAN's disc_on; FastSpeech2 has
+none). A key's first step runs eagerly: it is a real step and the warm-up
+that allocates every state the captured step reads (cuDNN's and cuBLAS's
+handles and workspaces, cuFFT's plans, the loss's blur matrices, the mel
+filterbank). The optimizers' moments and counts and the accumulators'
+means and counts exist before any step (the tasks allocate them when they
+build their state, and the runner calls every optimizer's
+``init_state``). Its second step is captured and then replayed, and so
+is every later one. The warm-up and the capture run on one side stream; replays
 run on the current stream, after the batch's copy from pinned host memory
 into the graph's static input buffers.
 
@@ -32,7 +40,8 @@ into the graph's static input buffers.
   use the pool's free memory, so before one the runner drops the graphs
   whose keys can no longer occur (``task.step_key_live``: for the
   adversarial tasks, the generator-only steps once the discriminator has
-  started), and with them their share of the pool.
+  started; for the two-stage PortaSpeech, the first stage's steps once
+  the Glow trains), and with them their share of the pool.
 - **Randomness.** A captured step draws from one generator registered
   with every graph and seeded before each replay with the step's seed, so
   a replay draws what ``step_generator(step)`` draws eagerly.
@@ -171,7 +180,8 @@ class StepGraphs:
 
     def _entry_report(self, key, entry: _Graph) -> dict:
         shapes, gates = key
-        return {"key": [{k: list(shape) for k, shape, _ in shapes}, list(gates)],
+        return {"key": [{k: list(shape) for k, shape, _ in shapes},
+                        {n: bool(g) for n, g in zip(self.task.step_key_names, gates, strict=True)}],
                 "capture_s": self.capture_s[key], "replays": entry.replays,
                 "nodes": {w.__name__: n for w, n in entry.nodes},
                 "free_gib": self.memory[key][0], "reserved_gib": self.memory[key][1]}

@@ -55,10 +55,12 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     return _masked_average(torch.square(pred - target), nonzero_mel_mask(target))
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=None)
 def _blur_matrix(n: int, device: str, window_size: int = 11, sigma: float = 1.5) -> torch.Tensor:
     """[n, n] banded Toeplitz G with G[i, i+k] = g[k+half]: G @ x is the
-    SAME-zero-padded 1-D gaussian conv along that axis."""
+    SAME-zero-padded 1-D gaussian conv along that axis. Kept for every n
+    (a captured step reads it at each replay: evicting it would free
+    memory a CUDA graph still reads)."""
     g = np.exp(-((np.arange(window_size) - window_size // 2) ** 2) / (2 * sigma ** 2))
     g = (g / g.sum()).astype(np.float32)
     half = window_size // 2

@@ -1,6 +1,7 @@
-"""AdamW whose update the card applies or skips, with no host sync.
+"""AdamW whose update the card applies or skips, and gradient accumulation
+decided on the card: no host sync in either.
 
-The adversarial tasks' optimizers (``train/tasks/adv_base.py``). optax's
+Every task's optimizers (``train/tasks/``). optax's
 ``adamw`` rule, as torch's AdamW computes it (bias-corrected moments, eps
 added to the root of the second moment, decoupled weight decay), with
 three differences that let a CUDA graph capture the update:
@@ -126,3 +127,56 @@ class MaskedAdamW(torch.optim.Optimizer):
             torch.where(apply, lr, lr_now, out=lr_now)  # the last applied update's
             p_new = torch.where(apply, p_new, p_old)
         torch._foreach_copy_(params, [x.view_as(p) for x, p in zip(p_new.split(sizes), params)])
+
+
+class GradAccumulator:
+    """optax ``MultiSteps`` on the card, with the JAX tasks' skip: a running
+    mean of k micro-steps' gradients and their count, both device tensors
+    allocated once, so every micro-step runs the same captured graph.
+
+    ``fold(finite)`` takes this micro-step's ``.grad`` of ``params``:
+    ``mean += (g - mean) / (n + 1)`` (optax's Welford rule) and ``n += 1``,
+    both only where the device bool ``finite`` is true (``torch.where``:
+    the JAX task keeps MultiSteps' whole state on a non-finite step); then
+    it puts the mean in ``.grad`` and returns ``apply = (n == k)``, the
+    device bool of the update. ``reset(apply)`` zeroes the mean and the
+    count where it is true. ``grads`` are per-parameter views of the mean,
+    ``n`` is a float32 device scalar; both are in ``state_dict`` (a
+    checkpoint's int ``n`` of the host rule loads too)."""
+
+    def __init__(self, params, k: int):
+        self.params = list(params)
+        self.k = int(k)
+        self.sizes = [p.numel() for p in self.params]
+        dev = self.params[0].device
+        self.mean = torch.zeros(sum(self.sizes), dtype=torch.float32, device=dev)
+        self.grads = [v.view_as(p) for v, p in zip(self.mean.split(self.sizes), self.params)]
+        self.n = torch.zeros((), dtype=torch.float32, device=dev)
+
+    @torch.no_grad()
+    def fold(self, finite: torch.Tensor | None = None) -> torch.Tensor:
+        """Fold the micro-step's gradients in (where ``finite``; None:
+        always), leave the mean in ``.grad``; return the update's bool."""
+        g = torch.cat([p.grad.reshape(-1) for p in self.params])
+        mean = self.mean + (g - self.mean) / (self.n + 1.0)
+        if finite is None:
+            self.mean.copy_(mean)
+            self.n.add_(1.0)
+        else:
+            torch.where(finite, mean, self.mean, out=self.mean)
+            torch.where(finite, self.n + 1.0, self.n, out=self.n)
+        torch._foreach_copy_([p.grad for p in self.params], self.grads)
+        return self.n == self.k
+
+    @torch.no_grad()
+    def reset(self, apply: torch.Tensor) -> None:
+        torch.where(apply, torch.zeros_like(self.mean), self.mean, out=self.mean)
+        torch.where(apply, torch.zeros_like(self.n), self.n, out=self.n)
+
+    def state_dict(self) -> dict:
+        return {"grads": list(self.grads), "n": self.n}
+
+    def load_state_dict(self, state: dict) -> None:
+        for a, v in zip(self.grads, state["grads"], strict=True):
+            a.copy_(v)
+        self.n.copy_(torch.as_tensor(state["n"], dtype=torch.float32))

@@ -21,31 +21,33 @@ One step, as in the JAX package:
    the discriminator is gated off (step < disc_start_steps, or step %
    disc_interval != 0) its optimizer and schedule do not step.
 
-The step never reads a device value on the host, so a CUDA graph can
-capture it (``train/graphs.py``): the skip is decided on the card
-(``MaskedAdamW``, ``train/optim.py``: on a non-finite loss the weights,
-both moments and the update count keep their bits), the update counts
-are the optimizers' device counts (``updates_g`` and ``updates_d`` read
-them), and the schedules read them there. The gates are known on the host
-ahead of the step; they and the batch's shapes key a captured step
-(``step_key``). ``grad_norm_g`` is reported on a skipped
-step too. With ``accumulate_grad_batches`` > 1 the skip stays a host read
-(whether a micro-step joins the running mean decides the update), and
-such a step is not captured. MaskedAdamW is optax's ``adamw`` rule:
-bias-corrected moments, eps added to the root of the second moment,
-decoupled weight decay applied as lr * wd * param. Parameters that got no
-gradient are stepped with a zero gradient, as optax does.
+The step never reads a device value on the host and allocates no state
+after its first run, so a CUDA graph can capture it (``train/graphs.py``):
+the skip is decided on the card (``MaskedAdamW``, ``train/optim.py``: on a
+non-finite loss the weights, both moments and the update count keep their
+bits), the update counts are the optimizers' device counts (``updates_g``
+and ``updates_d`` read them), and the schedules read them there. The gates
+are known on the host ahead of the step; they and the batch's shapes key a
+captured step (``step_key``). ``grad_norm_g`` is reported on a skipped
+step too. MaskedAdamW is optax's ``adamw`` rule: bias-corrected moments,
+eps added to the root of the second moment, decoupled weight decay applied
+as lr * wd * param. Parameters that got no gradient are stepped with a
+zero gradient, as optax does.
 
 ``accumulate_grad_batches`` = k > 1 is optax ``MultiSteps`` around both
-optimizers, as in the JAX package: each micro-step folds its gradients into
-a running mean (optax's Welford rule, acc += (g - acc) / (n + 1)); the k-th
-one clips that mean, steps AdamW with the schedule read at the update
-count, and resets the mean; the others update nothing. ``step`` (and with
-it ``disc_start_steps`` and ``disc_interval``) counts micro-steps, the
-update counts count optimizer steps. A skipped generator micro-step (non-
-finite loss) and a gated-off discriminator leave their accumulation state
-as it was, micro-step count included, so the two can fall out of phase.
-The accumulators are part of ``state_dict``.
+optimizers, as in the JAX package, decided on the card as well
+(``optim.GradAccumulator``): each micro-step folds its gradients into a
+running mean (optax's Welford rule, acc += (g - acc) / (n + 1)) where its
+loss is finite, and n counts the micro-steps folded; the update is tried
+at every micro-step on that mean and applied only where n reaches k, which
+also resets the mean and n. A micro-step therefore runs the same graph
+wherever it falls in the k. ``step`` (and with it ``disc_start_steps`` and
+``disc_interval``) counts micro-steps, the update counts count optimizer
+steps. A skipped generator micro-step (non-finite loss) and a gated-off
+discriminator leave their accumulation state as it was, micro-step count
+included, so the two can fall out of phase. ``grad_norm_*`` is the
+pre-clip norm of the running mean at every micro-step. The accumulators
+are part of ``state_dict``.
 
 Under ``amp`` (``ops/amp.py``) the model and discriminator passes run under
 autocast to bf16; the losses are computed with autocast off, on f32
@@ -53,9 +55,10 @@ values. Parameters and optimizer state stay f32.
 
 Under data parallelism (``parallel/mesh.py``) each rank steps on its rows
 of the global batch: the losses are W times their shares of the global
-batch's, the gradients are averaged over the ranks once per update (at
-the k-th micro-step with accumulation), and the reported losses are the
-global batch's.
+batch's, the gradients are averaged over the ranks once per update
+try (with accumulation that is every micro-step: the running mean is
+averaged, and only the k-th micro-step's average is applied), and the
+reported losses are the global batch's.
 
 Batches reach the steps through ``to_device`` (host arrays to tensors on
 the task's device, through pinned memory on the card, transfer dtypes
@@ -79,7 +82,7 @@ from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dty
 from dicttts_tpu_torch.ops.s2pa_bank import bank_tensor
 from dicttts_tpu_torch.parallel.mesh import all_reduce_grads, reduce_metrics
 from dicttts_tpu_torch.train import losses as L
-from dicttts_tpu_torch.train.optim import MaskedAdamW
+from dicttts_tpu_torch.train.optim import GradAccumulator, MaskedAdamW
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule, step_decay_schedule
 
 log = logging.getLogger("dicttts_tpu_torch.task")
@@ -205,18 +208,26 @@ class AdversarialTTSTask:
                                  eps=1e-8, weight_decay=cfg["weight_decay"])
         self.opt_d = MaskedAdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
                                  eps=opt_p["eps"], weight_decay=opt_p["weight_decay"])
-        # the generator's update is tried at every step, and the first may be
-        # skipped on the card: its state exists from the start, never
-        # allocated inside a captured step. The discriminator's is allocated
-        # at its first update, which the host knows of (step_key).
+        # every state a step reads exists before the first step, never
+        # allocated inside a captured one
         self.opt_g.init_state()
+        self.opt_d.init_state()
         self.step = 0  # train steps (micro-steps) taken
-        # gradient accumulation (k > 1): each optimizer's running mean of its
-        # micro-steps' gradients and the count of micro-steps in it
+        # gradient accumulation (k > 1): each optimizer's running mean and count
         self.acc = {}
         if self.accumulate > 1:
-            self.acc = {name: {"grads": [torch.zeros_like(p) for p in m.parameters()], "n": 0}
-                        for name, m in (("g", self.model), ("d", self.disc))}
+            self.acc = {"g": GradAccumulator(self.model.parameters(), self.accumulate),
+                        "d": GradAccumulator(self.disc.parameters(), self.accumulate)}
+
+    capture_reason = ""  # why the step cannot be captured ("" : it can)
+    step_key_names = ("adv_on", "disc_on")
+
+    @property
+    def capture_safe(self) -> bool:
+        """The train step reads nothing on the host and allocates no state
+        after its warm-up, in every setting (accumulation, amp, the gates),
+        so the trainer may replay it as a CUDA graph (``train/graphs.py``)."""
+        return not self.capture_reason
 
     @property
     def updates_g(self) -> int:
@@ -365,32 +376,23 @@ class AdversarialTTSTask:
         return loss_r + loss_f, {"r": loss_r, "f": loss_f}
 
     def _micro_step(self, name: str, opt, params, max_norm: float, schedule,
-                    apply: torch.Tensor | None = None):
+                    finite: torch.Tensor | None = None) -> torch.Tensor:
         """Apply this micro-step's gradients (``.grad``; None counts as zero,
-        as optax counts it) to optimizer ``name`` ('g' or 'd'), with its lr
-        ``schedule`` read at its device count. k = 1: the update at once,
-        applied where the device bool ``apply`` is true (None: always).
-        k > 1 (the caller has decided the skip on the host): fold them into
-        the running mean; on the k-th micro-step put the mean in ``.grad``,
-        update, and reset. Returns the pre-clip norm of an update, or None
-        when no update was tried."""
+        as optax counts it) to optimizer ``name``, with its lr ``schedule``
+        read at its device count. k = 1: the update, applied where the
+        device bool ``finite`` is true (None: always). k > 1: fold them into
+        the running mean where ``finite``, and try the update on the mean,
+        applied (and the mean reset) where it holds k micro-steps. Returns
+        the pre-clip norm of the gradients the update was tried with."""
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         acc = self.acc.get(name)
+        apply = finite if acc is None else acc.fold(finite)
+        norm = optimizer_step(opt, params, max_norm, schedule(opt.count), apply)
         if acc is not None:
-            n = acc["n"]
-            for a, p in zip(acc["grads"], params):
-                a.add_((p.grad - a) / (n + 1))
-            if n < self.accumulate - 1:
-                acc["n"] = n + 1
-                return None
-            for a, p in zip(acc["grads"], params):
-                p.grad.copy_(a)
-                a.zero_()
-            acc["n"] = 0
-        opt.init_state()
-        return optimizer_step(opt, params, max_norm, schedule(opt.count), apply)
+            acc.reset(apply)
+        return norm
 
     def train_step(self, batch: dict, generator: torch.Generator | None = None, *,
                    eps: torch.Tensor | None = None, start_frames_g=None, start_frames_d=None) -> dict:
@@ -419,16 +421,13 @@ class AdversarialTTSTask:
         metrics = reduce_metrics({**{k: v.detach() for k, v in {**g_losses, **d_losses}.items()},
                                   "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()})
         finite = torch.isfinite(metrics["total_loss"])
-        updated = {}
-        if not self.acc or bool(finite):  # with accumulation, a host read decides the skip
-            updated["grad_norm_g"] = self._micro_step(
-                "g", self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
-                self.schedule_g, None if self.acc else finite)
+        metrics["grad_norm_g"] = self._micro_step(
+            "g", self.opt_g, list(self.model.parameters()), self.cfg["generator_grad_norm"],
+            self.schedule_g, finite)
         if disc_on:
-            updated["grad_norm_d"] = self._micro_step(
+            metrics["grad_norm_d"] = self._micro_step(
                 "d", self.opt_d, list(self.disc.parameters()), self.cfg["discriminator_grad_norm"],
                 self.schedule_d)
-        metrics.update({k: v for k, v in updated.items() if v is not None})
         self.step += 1
         return metrics
 
@@ -449,7 +448,7 @@ class AdversarialTTSTask:
                  "opt_g": self.opt_g.state_dict(), "opt_d": self.opt_d.state_dict(),
                  "step": self.step, "updates_g": self.updates_g, "updates_d": self.updates_d}
         for name, acc in self.acc.items():
-            state[f"acc_{name}"] = {"grads": list(acc["grads"]), "n": acc["n"]}
+            state[f"acc_{name}"] = acc.state_dict()
         return state
 
     def load_state_dict(self, state: dict) -> None:
@@ -464,8 +463,6 @@ class AdversarialTTSTask:
         if (self.updates_g, self.updates_d) != (int(state["updates_g"]), int(state["updates_d"])):
             raise ValueError(f"the checkpoint's update counts {state['updates_g']}, {state['updates_d']} "
                              f"disagree with its optimizers' {self.updates_g}, {self.updates_d}")
+        self.opt_d.init_state()
         for name, acc in self.acc.items():
-            saved = state[f"acc_{name}"]
-            for a, v in zip(acc["grads"], saved["grads"], strict=True):
-                a.copy_(v)
-            acc["n"] = int(saved["n"])
+            acc.load_state_dict(state[f"acc_{name}"])

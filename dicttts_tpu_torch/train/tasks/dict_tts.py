@@ -143,14 +143,6 @@ class DictTTSTask(AdversarialTTSTask):
                          for k, v in self.bank.items()}
         self._pinyin_list = self._vocoder = None  # read at the first test batch
 
-    @property
-    def capture_safe(self) -> bool:
-        """The train step reads nothing on the host and allocates no state
-        after its warm-up, so the trainer may replay it as a CUDA graph
-        (``train/graphs.py``); not with gradient accumulation, whose skip
-        is a host read."""
-        return self.accumulate == 1
-
     def build_model(self) -> DictTTS:
         c = self.cfg
         return DictTTS(

@@ -15,9 +15,12 @@ model:
   the JAX package: the f0 loss starts near 1e4.
 The update clips the gradients to ``clip_grad_norm`` by optax's rule,
 then steps AdamW (beta2 0.98, eps 1e-8, the config's weight decay) with
-the rsqrt schedule read at the update count. As in the JAX task, a
-non-finite loss is not guarded against, so a step never waits for the
-card.
+the rsqrt schedule read at the update count on the card
+(``train/optim.MaskedAdamW``, which loads torch AdamW's checkpoints). As
+in the JAX task, a non-finite loss is not guarded against. The step reads
+nothing on the host, so on the card the trainer replays it as a CUDA
+graph (``train/graphs.py``; ``capture_safe``); it has no gates
+(``step_key`` is empty).
 
 Under ``amp`` the model runs under autocast to bf16 where the JAX modules
 take the activation dtype (``models/fastspeech2.py``); the losses run in
@@ -39,12 +42,17 @@ from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dty
 from dicttts_tpu_torch.ops.seq import mel2token_to_dur
 from dicttts_tpu_torch.parallel.mesh import reduce_metrics, shard_denominator
 from dicttts_tpu_torch.train import losses as L
+from dicttts_tpu_torch.train.optim import MaskedAdamW
 from dicttts_tpu_torch.train.tasks.adv_base import batch_to_device, optimizer_step
 from dicttts_tpu_torch.utils.device import resolve_device
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule
 
 
 class FastSpeech2Task:
+    capture_reason = ""  # every encoder and decoder of the registry captures
+    capture_safe = True
+    step_key_names = ()
+
     def __init__(self, cfg: dict, data=None, device="cuda"):
         if cfg.get("use_device_frame_cache"):
             raise ValueError("use_device_frame_cache is not supported by FastSpeech2Task")
@@ -87,11 +95,16 @@ class FastSpeech2Task:
             torch.manual_seed(seed)
             self.model = self.build_model().to(self.device)
         c = self.cfg
-        self.opt = torch.optim.AdamW(
+        self.opt = MaskedAdamW(
             self.model.parameters(), lr=self.schedule(0), eps=1e-8,
             betas=(c.get("optimizer_adam_beta1", 0.9), c.get("optimizer_adam_beta2", 0.98)),
             weight_decay=c.get("weight_decay", 0.0))
+        self.opt.init_state()
         self.step = 0
+
+    def step_key(self) -> tuple:
+        """No gates: a captured step depends on the batch's shapes alone."""
+        return ()
 
     # -- the trainer's contract ---------------------------------------------------
     def train_batches(self):
@@ -149,7 +162,7 @@ class FastSpeech2Task:
         loss, losses, _ = self._losses(batch, generator)
         loss.backward()
         norm = optimizer_step(self.opt, list(self.model.parameters()), self.cfg.get("clip_grad_norm", 1.0),
-                              self.schedule(self.step))
+                              self.schedule(self.opt.count))
         self.step += 1
         return {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
                                   "total_loss": loss.detach()}), "grad_norm": norm}
@@ -177,5 +190,6 @@ class FastSpeech2Task:
 
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["params_g"])
-        self.opt.load_state_dict(state["opt_g"])
+        self.opt.load_state_dict(state["opt_g"])  # torch AdamW's layout too
+        self.opt.init_state()
         self.step = int(state["step"])

@@ -16,8 +16,16 @@ Port of ``dicttts_tpu/train/tasks/hifigan.py`` (``HifiGanTask``). One step:
    (10 for G, 1 for D), then steps AdamW as ``optax.adamw`` (b1 0.8, b2
    0.99, eps 1e-8, weight decay 1e-4, not torch's 1e-2 default) with the
    StepLR schedule lr * gamma^floor(count / step_size) read at its own
-   update count. Before ``disc_start_steps`` the discriminators' optimizer
-   does not step: its moments and its count stay as they were.
+   update count, on the card (``train/optim.MaskedAdamW``: the counts are
+   the optimizers' device counts, which ``updates_g`` and ``updates_d``
+   read; torch AdamW's checkpoints load). Before ``disc_start_steps`` the
+   discriminators' optimizer does not step: its moments and its count stay
+   as they were.
+
+The step reads nothing on the host, so on the card the trainer replays it
+as a CUDA graph (``train/graphs.py``). Whether the discriminators train is
+known on the host ahead of the step (``step_key``); the generator-only
+graphs are dropped once they have started (``step_key_live``).
 
 Under ``amp`` the generator and discriminator passes run under autocast to
 bf16 (the JAX task casts both parameter sets to bf16 at use) and return
@@ -44,6 +52,7 @@ from dicttts_tpu_torch.ops.amp import amp_scope, f32_island, task_activation_dty
 from dicttts_tpu_torch.ops.mel import gan_log_mel
 from dicttts_tpu_torch.parallel.mesh import reduce_metrics
 from dicttts_tpu_torch.train.losses import feature_matching_loss
+from dicttts_tpu_torch.train.optim import MaskedAdamW
 from dicttts_tpu_torch.train.stft_loss import multi_resolution_stft_loss
 from dicttts_tpu_torch.train.tasks.adv_base import frozen, optimizer_step
 from dicttts_tpu_torch.utils.device import resolve_device
@@ -53,6 +62,10 @@ ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default
 
 
 class HifiGanTask:
+    capture_reason = ""
+    capture_safe = True
+    step_key_names = ("disc_on",)
+
     def __init__(self, cfg: dict, data=None, device="cuda"):
         self.cfg = cfg
         self.data = data
@@ -91,13 +104,30 @@ class HifiGanTask:
             self.model = self.build_generator().to(self.device)
             self.disc = HifiGanDiscriminator().to(self.device)
         betas = (self.cfg.get("adam_b1", 0.8), self.cfg.get("adam_b2", 0.99))
-        self.opt_g = torch.optim.AdamW(self.model.parameters(), lr=self.schedule_g(0), betas=betas,
-                                       eps=1e-8, weight_decay=ADAMW_WEIGHT_DECAY)
-        self.opt_d = torch.optim.AdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
-                                       eps=1e-8, weight_decay=ADAMW_WEIGHT_DECAY)
+        self.opt_g = MaskedAdamW(self.model.parameters(), lr=self.schedule_g(0), betas=betas,
+                                 eps=1e-8, weight_decay=ADAMW_WEIGHT_DECAY)
+        self.opt_d = MaskedAdamW(self.disc.parameters(), lr=self.schedule_d(0), betas=betas,
+                                 eps=1e-8, weight_decay=ADAMW_WEIGHT_DECAY)
+        self.opt_g.init_state()
+        self.opt_d.init_state()
         self.step = 0
-        self.updates_g = 0
-        self.updates_d = 0
+
+    @property
+    def updates_g(self) -> int:
+        """Generator updates applied (the schedule's count; a host read)."""
+        return self.opt_g.updates()
+
+    @property
+    def updates_d(self) -> int:
+        return self.opt_d.updates()
+
+    def step_key(self) -> tuple[bool]:
+        """(disc_on,): whether the next step trains the discriminators."""
+        return (self.step >= self.disc_start_steps,)
+
+    def step_key_live(self, key: tuple) -> bool:
+        """A generator-only step cannot come once the discriminators train."""
+        return key[0] or self.step < self.disc_start_steps
 
     # -- the trainer's contract ---------------------------------------------------
     def train_batches(self):
@@ -137,7 +167,7 @@ class HifiGanTask:
         with self.f32():
             losses = {"mel": self.lambda_mel * torch.mean(torch.abs(
                 gan_log_mel(wav_fake, **self.mel_kw) - gan_log_mel(wav_real, **self.mel_kw)))}
-        disc_on = float(self.step >= self.disc_start_steps)
+        disc_on = float(self.step_key()[0])
         if train:
             with frozen(self.disc):
                 scores_f, fmaps_f = self._disc_scores(wav_fake)
@@ -163,7 +193,7 @@ class HifiGanTask:
         """One GAN step on a device batch (``generator`` is unused: the step
         draws nothing). Returns the losses and the pre-clip gradient norm of
         each parameter set that was updated, as device scalars."""
-        disc_on = self.step >= self.disc_start_steps
+        (disc_on,) = self.step_key()
         self.model.train()
         self.disc.train()
         self.opt_g.zero_grad(set_to_none=True)
@@ -172,16 +202,14 @@ class HifiGanTask:
         loss_g.backward()
         metrics = {"grad_norm_g": optimizer_step(self.opt_g, list(self.model.parameters()),
                                                  self.cfg.get("generator_grad_norm", 10.0),
-                                                 self.schedule_g(self.updates_g))}
-        self.updates_g += 1
+                                                 self.schedule_g(self.opt_g.count))}
         with torch.set_grad_enabled(disc_on):
             loss_d = self._disc_loss(wav_fake.detach(), batch["wavs"])
         if disc_on:
             loss_d.backward()
             metrics["grad_norm_d"] = optimizer_step(self.opt_d, list(self.disc.parameters()),
                                                     self.cfg.get("discriminator_grad_norm", 1.0),
-                                                    self.schedule_d(self.updates_d))
-            self.updates_d += 1
+                                                    self.schedule_d(self.opt_d.count))
         self.step += 1
         return {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
                                   "total_loss": loss_g.detach(), "disc_loss": loss_d.detach()}),
@@ -215,7 +243,11 @@ class HifiGanTask:
     def load_state_dict(self, state: dict) -> None:
         self.model.load_state_dict(state["params_g"])
         self.disc.load_state_dict(state["params_d"])
-        self.opt_g.load_state_dict(state["opt_g"])
+        self.opt_g.load_state_dict(state["opt_g"])  # torch AdamW's layout too
         self.opt_d.load_state_dict(state["opt_d"])
-        self.step, self.updates_g, self.updates_d = (
-            int(state["step"]), int(state["updates_g"]), int(state["updates_d"]))
+        self.opt_g.init_state()
+        self.opt_d.init_state()
+        self.step = int(state["step"])
+        if (self.updates_g, self.updates_d) != (int(state["updates_g"]), int(state["updates_d"])):
+            raise ValueError(f"the checkpoint's update counts {state['updates_g']}, {state['updates_d']} "
+                             f"disagree with its optimizers' {self.updates_g}, {self.updates_d}")

@@ -22,7 +22,16 @@ Port of ``dicttts_tpu/train/tasks/ps_flow.py`` (``PortaSpeechFlowTask``).
 A non-finite loss skips the update, as in the port's other tasks (the JAX
 task multiplies NaN gradients by 0, which leaves them NaN), decided on the
 card (``train/optim.py``): the step reads no device value on the host.
-Gradient accumulation with ``two_stage`` is not ported: it raises.
+The stage is a gate known on the host ahead of the step, so it joins
+``step_key``: a captured step of each stage (``train/graphs.py``), and the
+stage-one graphs are dropped once the switch has passed.
+
+With ``accumulate_grad_batches`` = k > 1, two-stage training accumulates
+the stage's optimizer: each stage's k micro-steps make one update with
+their mean gradient (``optim.GradAccumulator``), the reference trainer's
+rule for every optimizer. The JAX task wraps only the main optimizer in
+``MultiSteps`` and steps the Glow's at every micro-step; the port
+accumulates both.
 """
 
 from __future__ import annotations
@@ -30,7 +39,7 @@ from __future__ import annotations
 import torch
 
 from dicttts_tpu_torch.parallel.mesh import reduce_metrics
-from dicttts_tpu_torch.train.optim import MaskedAdamW
+from dicttts_tpu_torch.train.optim import GradAccumulator, MaskedAdamW
 from dicttts_tpu_torch.train.tasks.ps_adv import PortaSpeechAdvTask
 from dicttts_tpu_torch.utils.schedulers import rsqrt_schedule
 
@@ -47,9 +56,6 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         self.post_glow_training_start = int(c["post_glow_training_start"])
         self.schedule_pf = rsqrt_schedule(c.get("post_glow_lr", c["lr"]), c["warmup_updates"],
                                           c["hidden_size"])
-        if self.staged and self.accumulate > 1:
-            raise NotImplementedError("accumulate_grad_batches > 1 with the two-stage post-glow "
-                                      "is not ported")
 
     def model_kwargs(self) -> dict:
         kw = super().model_kwargs()
@@ -82,7 +88,30 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
                                  weight_decay=c["weight_decay"])
         self.opt_pf = MaskedAdamW(post, lr=self.schedule_pf(0), betas=betas, eps=1e-8,
                                   weight_decay=POST_GLOW_WEIGHT_DECAY)
-        # each state is allocated at its stage's first update, which the host knows of
+        self.opt_g.init_state()
+        self.opt_pf.init_state()
+        if self.accumulate > 1:
+            self.acc = {"g": GradAccumulator(main, self.accumulate),
+                        "pf": GradAccumulator(post, self.accumulate)}
+
+    def post_on(self) -> bool:
+        """Whether the next step trains the Glow (two-stage, from
+        ``post_glow_training_start``)."""
+        return self.staged and self.step >= self.post_glow_training_start
+
+    @property
+    def step_key_names(self) -> tuple:
+        return ("post_on",) if self.staged else super().step_key_names
+
+    def step_key(self) -> tuple:
+        """Two-stage: (post_on,), the stage of the next step; otherwise the
+        adversarial gates (``adv_base``)."""
+        return (self.post_on(),) if self.staged else super().step_key()
+
+    def step_key_live(self, key: tuple) -> bool:
+        """Two-stage: a stage-one step cannot come once the switch has
+        passed."""
+        return key[0] or not self.post_on() if self.staged else super().step_key_live(key)
 
     @property
     def updates_pf(self) -> int:
@@ -105,7 +134,7 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
             return super().train_step(batch, generator, eps=eps, start_frames_g=start_frames_g,
                                       start_frames_d=start_frames_d)
         batch = self.prepare_batch(batch)
-        post_on = self.step >= self.post_glow_training_start
+        post_on = self.post_on()
         self.model.train()
         self.opt_g.zero_grad(set_to_none=True)
         self.opt_pf.zero_grad(set_to_none=True)
@@ -116,7 +145,7 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         loss.backward()
         metrics = {**reduce_metrics({**{k: v.detach() for k, v in losses.items()},
                                      "total_loss": loss.detach()}),
-                   "post_stage": torch.tensor(float(post_on))}
+                   "post_stage": torch.full((), float(post_on), device=loss.device)}
         finite = torch.isfinite(metrics["total_loss"])  # the global loss: every rank skips alike
         main, post = self.partition()
         if post_on:
@@ -138,6 +167,7 @@ class PortaSpeechFlowTask(PortaSpeechAdvTask):
         super().load_state_dict(state)
         if self.staged:
             self.opt_pf.load_state_dict(state["opt_pf"])
+            self.opt_pf.init_state()
             if self.updates_pf != int(state["updates_pf"]):
                 raise ValueError(f"the checkpoint's updates_pf {state['updates_pf']} disagrees with its "
                                  f"optimizer's {self.updates_pf}")

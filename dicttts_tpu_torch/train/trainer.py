@@ -54,14 +54,18 @@ Logging fires when a group crosses a multiple of ``log_interval``
 metrics; validation, the checkpoint and the artifacts when it crosses a
 multiple of ``val_check_interval``. Inside a group the host reads nothing
 from the card; a group ends with one synchronization, and the metrics are
-read only where it logs or validates. On the card, for a task that
-declares its step capture-safe (``capture_safe``: ``DictTTSTask`` without
-gradient accumulation) and K > 1, every step runs through
-``train/graphs.py``: a key's first step eagerly, then replays of the
-step's CUDA graph. Other tasks, and every task on the CPU, run the steps
-of a group eagerly. K = 1 is one eager step a group: the same step, the
-same numbers. Under data parallelism only NCCL's collectives can be
-captured: a capture-safe task with K > 1 on the card under gloo raises.
+read only where it logs or validates. On the card at K > 1, every step
+of a task that declares its step capture-safe (``capture_safe``: every
+task of ``train/tasks`` -- Dict-TTS, the PortaSpeech pair in both stages,
+FastSpeech2 with each encoder and decoder, HiFi-GAN -- with or without
+gradient accumulation and amp) runs through ``train/graphs.py``: a key's
+first step eagerly, then replays of the step's CUDA graph. A task that is
+not capture-safe runs its steps eagerly, and its ``capture_reason`` goes
+into ``graph_report`` (``not_captured``) and into each history record
+(``why_eager``). On the CPU a group's steps run eagerly. K = 1 is one
+eager step a group: the same step, the same numbers. Under data
+parallelism only NCCL's collectives can be captured: a capture-safe task
+with K > 1 on the card under gloo raises.
 
 Each step's randomness (dropout masks, the posterior noise, crop starts)
 is a function of (seed, step, rank), whatever K is: ``step_generator``
@@ -84,9 +88,10 @@ milliseconds ``save`` held the loop and the thread's seconds.
 Each train step appends a record to ``history``: the step, its sentences
 and mel frames (the batch's shape), the milliseconds the loop waited for
 the batch, its group's index and size, how it ran (``run``: "eager",
-"captured" (the capture, then its first replay) or "replayed"), and
-``step_ms``: the group's wall time, from its first step's launch to its
-end synchronization, divided by its steps. ``graph_report`` holds the graphs of the last ``fit`` (keys,
+"captured" (the capture, then its first replay) or "replayed"; with
+``why_eager`` where a task that is not capture-safe ran eagerly on the
+card at K > 1), and ``step_ms``: the group's wall time, from its first
+step's launch to its end synchronization, divided by its steps. ``graph_report`` holds the graphs of the last ``fit`` (keys,
 capture seconds, replays, bank-kernel nodes).
 
     trainer = Trainer(work_dir, max_updates=1000, steps_per_dispatch=16)   # device="cuda"
@@ -209,6 +214,7 @@ class Trainer:
         self.steps_per_dispatch = max(int(steps_per_dispatch), 1)  # K: the most steps in a group
         self.steady_per_step_s: float | None = None
         self.graph_report: dict | None = None  # the last fit's CUDA graphs (train/graphs.py)
+        self._why_eager: str | None = None  # why this fit's steps run eagerly on the card at K > 1
         self.saves: list[dict] = []  # per save: step, hold_ms (the loop's), write_s (the thread's)
         self._ckpt_writer = CheckpointWriter()
         self.test_seconds = 0.0  # the last test loop's wall time
@@ -287,10 +293,18 @@ class Trainer:
         task.attach_device_frame_cache()
         k = self.steps_per_dispatch
         runner = None
-        if self.device.type == "cuda" and k > 1 and getattr(task, "capture_safe", False):
-            mesh.check_graph_capture(f"steps_per_dispatch={k}")
-            from dicttts_tpu_torch.train.graphs import StepGraphs
-            runner = StepGraphs(task, self.device)
+        self._why_eager = None
+        if self.device.type == "cuda" and k > 1:
+            if getattr(task, "capture_safe", False):
+                mesh.check_graph_capture(f"steps_per_dispatch={k}")
+                from dicttts_tpu_torch.train.graphs import StepGraphs
+                runner = StepGraphs(task, self.device)
+            else:
+                self._why_eager = (getattr(task, "capture_reason", "")
+                                   or f"{type(task).__name__} does not declare its step capture-safe")
+                log.warning("steps run eagerly: %s", self._why_eager)
+                self.graph_report = {"graphs": [], "replays": 0, "capture_s": 0.0, "eager_steps": 0,
+                                     "not_captured": self._why_eager}
         if self.num_sanity_val_steps > 0 and self.global_step == 0:
             self.evaluate(task, val(), max_batches=self.num_sanity_val_steps, sanity=True)
         saved_at = self.global_step
@@ -381,6 +395,9 @@ class Trainer:
             records.append({"step": self.global_step, "sentences": rows, "frames": frames,
                             "wait_ms": wait * 1e3, "group": index, "group_size": len(group),
                             "run": runner.last if runner is not None else "eager"})
+            if self._why_eager:
+                records[-1]["why_eager"] = self._why_eager
+                self.graph_report["eager_steps"] += 1
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         step_ms = (time.perf_counter() - t0) * 1e3 / len(group)

@@ -26,6 +26,7 @@ Dropout is 0 on both sides (the pitch predictor's fixed 0.1, the JAX
 module's default, set to 0 on both); the JAX side runs under ``jax.jit``.
 """
 
+import io
 import os
 
 import jax
@@ -152,7 +153,7 @@ def test_losses_and_gradients_match_jax():
 
 def _adam_atol(opt, p, top):
     st, group = opt.state[p], opt.param_groups[0]
-    lr, eps, b2 = group["lr"], group["eps"], group["betas"][1]
+    lr, eps, b2 = float(group["lr"]), group["eps"], group["betas"][1]  # the lr is a device scalar
     g = (st["exp_avg_sq"] / (1 - b2 ** float(st["step"]))).sqrt().numpy()
     return 1e-6 + np.minimum(lr * (1e-3 * g + 1e-6 * top) / (g + eps), 2 * lr)
 
@@ -311,3 +312,42 @@ def test_the_frame_cache_is_refused():
         FastSpeech2Task(dict(CFG, use_device_frame_cache=True), device="cpu")
     with pytest.raises(ValueError, match="use_device_frame_cache"):
         JTask(dict(CFG, use_device_frame_cache=True), None)
+
+
+def _roundtrip(state):
+    """``state`` through torch.save and torch.load, as a checkpoint."""
+    buf = io.BytesIO()
+    torch.save(state, buf)
+    buf.seek(0)
+    return torch.load(buf, weights_only=True)
+
+
+def test_a_torch_adamw_checkpoint_loads():
+    """A checkpoint written while the task stepped ``torch.optim.AdamW``
+    (before it moved to MaskedAdamW) loads: the moments, the count and the
+    lr come through, and the next update equals AdamW's next step."""
+    task = FastSpeech2Task(dict(CFG), device="cpu")
+    task.build_state(0)
+    params = list(task.model.parameters())
+    adamw = torch.optim.AdamW(params, lr=0.01, eps=1e-8, betas=(0.9, 0.98), weight_decay=CFG["weight_decay"])
+    gen = torch.Generator().manual_seed(5)
+    grads = [[torch.randn(p.shape, generator=gen) * 0.1 for p in params] for _ in range(3)]
+    for gs in grads[:2]:
+        for p, g in zip(params, gs):
+            p.grad = g.clone()
+        adamw.step()
+    loaded = FastSpeech2Task(dict(CFG), device="cpu")
+    loaded.build_state(1)
+    loaded.load_state_dict(_roundtrip({"params_g": task.model.state_dict(), "opt_g": adamw.state_dict(),
+                                       "step": 2}))
+    assert loaded.opt.updates() == 2 and float(loaded.opt.param_groups[0]["lr"]) == 0.01
+    for p, q in zip(params, loaded.model.parameters()):
+        for k in ("exp_avg", "exp_avg_sq"):
+            assert torch.equal(adamw.state[p][k], loaded.opt.state[q][k]), k
+    for p, q, g in zip(params, loaded.model.parameters(), grads[2]):
+        p.grad, q.grad = g.clone(), g.clone()
+    adamw.step()
+    loaded.opt.update(0.01)
+    for p, q in zip(params, loaded.model.parameters()):
+        np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(), rtol=0, atol=1e-6)
+    assert loaded.opt.updates() == 3

@@ -26,6 +26,7 @@ rest on:
 """
 
 import functools
+import io
 import json
 import os
 import sys
@@ -39,6 +40,7 @@ import torch
 sys.path.insert(0, os.path.dirname(__file__))
 import test_torch_binarizer as TB  # noqa: E402
 from test_torch_accumulate import _adam_atol  # noqa: E402
+from test_torch_train_task import _as_built  # noqa: E402
 
 from dicttts_tpu.data.datasets import VocoderDataset as JVocoderDataset  # noqa: E402
 from dicttts_tpu.models import hifigan as jh  # noqa: E402
@@ -229,7 +231,7 @@ def test_the_discriminator_is_frozen_before_its_start(jax_task):
         metrics = task.train_step(task.to_device(_batch(step)))
         moved = any(not torch.equal(d0[k], v) for k, v in task.disc.state_dict().items())
         assert moved == (step == 1) and ("grad_norm_d" in metrics) == (step == 1)
-        assert (task.opt_d.state_dict()["state"] == {}) == (step < 1)
+        assert _as_built(task.opt_d) == (step < 1)
         assert task.updates_d == step and task.updates_g == step + 1
         assert (metrics["a"].item() == 0.0) == (step < 1) and metrics["disc_loss"].item() > 0
         assert all(p.grad is None for p in task.disc.parameters()) == (step < 1)
@@ -320,3 +322,42 @@ def test_run_names_a_corpus_without_binaries(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError, match="dicttts_tpu_torch.text.binarize"):
         run.main(["--config", RECIPE, "--exp_name", "x", "--device", "cpu", "--hparams",
                   f"binary_data_dir={tmp_path}"])
+
+
+def test_a_torch_adamw_checkpoint_loads():
+    """A checkpoint written while the task stepped ``torch.optim.AdamW``
+    (before it moved to MaskedAdamW) loads: each optimizer's moments, count
+    and lr come through, the update counts agree, and the generator's next
+    update equals AdamW's next step."""
+    task = HifiGanTask(dict(CFG), device="cpu")
+    task.build_state(0)
+    gen = torch.Generator().manual_seed(6)
+    opts, grads = {}, {}
+    for name, module, n in (("g", task.model, 2), ("d", task.disc, 1)):
+        params = list(module.parameters())
+        opts[name] = torch.optim.AdamW(params, lr=2e-4, betas=(0.8, 0.99), eps=1e-8, weight_decay=1e-4)
+        grads[name] = [[torch.randn(p.shape, generator=gen) * 0.1 for p in params] for _ in range(n + 1)]
+        for gs in grads[name][:n]:
+            for p, g in zip(params, gs):
+                p.grad = g.clone()
+            opts[name].step()
+    buf = io.BytesIO()
+    torch.save({"params_g": task.model.state_dict(), "params_d": task.disc.state_dict(),
+                "opt_g": opts["g"].state_dict(), "opt_d": opts["d"].state_dict(), "step": 2,
+                "updates_g": 2, "updates_d": 1}, buf)
+    buf.seek(0)
+    loaded = HifiGanTask(dict(CFG), device="cpu")
+    loaded.build_state(1)
+    loaded.load_state_dict(torch.load(buf, weights_only=True))
+    assert (loaded.step, loaded.updates_g, loaded.updates_d) == (2, 2, 1)
+    for name, module, mine in (("g", task.model, loaded.model), ("d", task.disc, loaded.disc)):
+        opt = getattr(loaded, f"opt_{name}")
+        assert float(opt.param_groups[0]["lr"]) == 2e-4
+        for p, q in zip(module.parameters(), mine.parameters()):
+            assert all(torch.equal(opts[name].state[p][k], opt.state[q][k]) for k in ("exp_avg", "exp_avg_sq"))
+    for p, q, g in zip(task.model.parameters(), loaded.model.parameters(), grads["g"][2]):
+        p.grad, q.grad = g.clone(), g.clone()
+    opts["g"].step()
+    loaded.opt_g.update(2e-4)
+    for p, q in zip(task.model.parameters(), loaded.model.parameters()):
+        np.testing.assert_allclose(q.detach().numpy(), p.detach().numpy(), rtol=0, atol=1e-6)

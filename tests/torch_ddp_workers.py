@@ -189,7 +189,7 @@ def update_atol(task, modules) -> dict:
     out = {}
     for i, module in enumerate(modules):
         for n, p in module.named_parameters():
-            opt = next((o for o in opts if p in o.state), None)
+            opt = next((o for o in opts if p in o.state and float(o.state[p]["step"]) > 0), None)
             out[f"{i}.{n}"] = adam_atol(opt, p, top[id(opt)]) if opt is not None else np.full(p.shape, 1e-6)
     return out
 
